@@ -1,0 +1,75 @@
+"""The port stands alone: it imports no JAX, no flax, nothing of the JAX
+package and no cv2 at import time, and its entry points run on the card
+unless the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from yolact_minimal_torch.config import get_config
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_MODULES = sorted(
+    '.'.join(p.relative_to(ROOT).with_suffix('').parts).removesuffix('.__init__')
+    for p in (ROOT / 'yolact_minimal_torch').rglob('*.py'))
+
+
+def test_port_imports_no_jax():
+    assert 'yolact_minimal_torch.ops.mask_finalize' in PORT_MODULES
+    code = (
+        'import sys\n'
+        f'for m in {PORT_MODULES!r}: __import__(m)\n'
+        'bad = sorted(k for k in sys.modules if k.split(".")[0] in '
+        '("jax", "jaxlib", "flax", "yolact_minimal_tpu", "cv2"))\n'
+        'print(len(sys.modules)); assert not bad, bad\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / 'chip_smoke.py').read_text()
+    for name in ('jax', 'flax', 'yolact_minimal_tpu', 'cv2'):
+        assert f'import {name}' not in src and f'from {name}' not in src
+
+
+def test_detector_without_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip('this machine has a card: the default device is usable')
+    from yolact_minimal_torch.pipeline import Detector, load_detector
+    cfg = get_config('res50_coco', img_size=64)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Detector(cfg)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        load_detector('latest_res50_coco_1.pth')
+    from yolact_minimal_torch.detect import main
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        main(['--weight', 'missing_res50_coco.pth', '--image', str(ROOT)])
+
+
+def test_kernels_raise_on_a_device_they_do_not_take():
+    from yolact_minimal_torch.ops.suppression import suppression_iou_max
+    x = torch.zeros(2, 8, device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        suppression_iou_max(x, x, x, x, torch.zeros(2, 8, dtype=torch.bool, device='meta'))
+
+
+def test_kernel_build_names_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):
+    from yolact_minimal_torch.ops import _build
+    monkeypatch.setattr(_build, 'CSRC', tmp_path)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+    (tmp_path / 'k.cu').write_text('// one\n')
+    first = _build._target('k')
+    (tmp_path / 'k.cu').write_text('// two\n')
+    assert _build._target('k') != first            # an edited source rebuilds
+    assert first.parent == tmp_path / 'build'
+    monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
+    monkeypatch.setattr(_build.os.path, 'exists', lambda path: False)
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        _build.build(['k'])

@@ -1,0 +1,82 @@
+"""Core box geometry on torch tensors.
+
+Same conventions as the reference geometry layer: SSD variances 0.1/0.2,
++0.5 anchor centering, IoU without the +1 area term. Every function takes
+leading batch dimensions and keeps fixed shapes.
+"""
+from __future__ import annotations
+
+import math
+from itertools import product
+
+import numpy as np
+import torch
+
+# SSD-style box-encoding variances.
+VARIANCES = (0.1, 0.2)
+
+
+def box_iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of xyxy boxes: [..., A, 4] x [..., B, 4] -> [..., A, B]."""
+    a = box_a[..., :, None, :]
+    b = box_b[..., None, :, :]
+    max_xy = torch.minimum(a[..., 2:], b[..., 2:])
+    min_xy = torch.maximum(a[..., :2], b[..., :2])
+    inter = (max_xy - min_xy).clamp(min=0.0)
+    inter_area = inter[..., 0] * inter[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter_area / (area_a + area_b - inter_area)
+
+
+def make_anchors(img_size: int, aspect_ratios, scales) -> np.ndarray:
+    """Dense grid anchors over the 5 FPN levels (strides 8..128), float32
+    [num_anchors, 4] in normalized (cx, cy, w, h). Feature sizes are
+    ceil(img_size / stride); rows (j) then cols (i), ratios innermost."""
+    out = []
+    for stride, scale in zip((8, 16, 32, 64, 128), scales):
+        size = math.ceil(img_size / stride)
+        for j, i in product(range(size), range(size)):
+            x = (i + 0.5) / size
+            y = (j + 0.5) / size
+            for ar in aspect_ratios:
+                r = math.sqrt(ar)
+                out.append((x, y, scale * r / img_size, scale / r / img_size))
+    return np.array(out, dtype=np.float32)
+
+
+def decode(offsets: torch.Tensor, anchors: torch.Tensor, clip: bool = True) -> torch.Tensor:
+    """SSD offsets [..., 4] against cxcywh anchors -> normalized xyxy boxes,
+    clipped to [0, 1] when `clip`."""
+    cxcy = anchors[..., :2] + offsets[..., :2] * VARIANCES[0] * anchors[..., 2:]
+    wh = anchors[..., 2:] * torch.exp(offsets[..., 2:] * VARIANCES[1])
+    x1y1 = cxcy - wh / 2
+    x2y2 = wh + x1y1
+    boxes = torch.cat([x1y1, x2y2], dim=-1)
+    if clip:
+        boxes = boxes.clamp(0.0, 1.0)
+    return boxes
+
+
+def sanitize_coordinates(x1, x2, img_size, padding: int = 0):
+    """Scale normalized coords to pixels, order them, clamp to the image."""
+    x1 = x1 * img_size
+    x2 = x2 * img_size
+    lo = torch.minimum(x1, x2)
+    hi = torch.maximum(x1, x2)
+    lo = (lo - padding).clamp(min=0.0)
+    hi = (hi + padding).clamp(max=img_size)
+    return lo, hi
+
+
+def crop(masks: torch.Tensor, boxes: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """Zero mask pixels outside each box. masks [..., h, w, n]; boxes
+    [..., n, 4] normalized xyxy."""
+    h, w = masks.shape[-3], masks.shape[-2]
+    x1, x2 = sanitize_coordinates(boxes[..., 0], boxes[..., 2], w, padding)
+    y1, y2 = sanitize_coordinates(boxes[..., 1], boxes[..., 3], h, padding)
+    cols = torch.arange(w, dtype=torch.float32, device=masks.device)[:, None]
+    rows = torch.arange(h, dtype=torch.float32, device=masks.device)[:, None, None]
+    x1, x2, y1, y2 = (t[..., None, None, :] for t in (x1, x2, y1, y2))
+    keep = (cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)
+    return masks * keep.to(masks.dtype)
