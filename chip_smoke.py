@@ -11,16 +11,26 @@ Phases, in order; any failure exits nonzero:
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, timed with CUDA events (median of 20 after warm-up);
   4. the main path at full width: res50_coco at 544, batch 16, seeded random
-     weights, bf16: Detector.detect_fixed for a few batches (img/s), then
-     Detector.__call__ + postprocess_host on two images; both kernels'
-     launch counters must rise in this phase;
-  5. float32 with TF32 off: one image's network outputs on the card against
-     the port's own CPU run, and the card's postprocess and masks (kernels)
-     against the CPU's plain versions on the same head outputs.
+     weights, bf16: Detector.detect_fixed for a few batches (img/s, host
+     clock, untraced), then Detector.__call__ + postprocess_host on two
+     images; both kernels' launch counters must rise in this phase;
+  5. where detect_fixed's device time goes: a few more calls of the same
+     Detector on the same images under torch.profiler, device time by kernel
+     group, and the device's busy share against phase 4's untraced host time;
+  6. numerics on one image: float32 with TF32 off, the card's network
+     outputs against the port's own CPU run, and the card's postprocess and
+     masks (kernels) against the CPU's plain versions on the same head
+     outputs; then phase 4's bf16 network and slate against the card's
+     float32 run.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
+
+In the kernels line `max_abs_err` is the largest |kernel - plain| over the
+output; for the bool masks of mask_finalize that is 0 or 1, and the stated
+tolerance holds `mismatch_frac`, the share of mask pixels that differ.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +49,24 @@ SCORE_THRE = 0.002      # below the ~1/81 random-init scores: the slate fills
 NET_REL_TOL = 1e-4
 POST_ATOL = 1e-6
 MASK_MISMATCH = 1e-4
+# bf16 against float32 on the card: each network output within 5e-2 of its
+# largest magnitude (bf16 keeps 8 mantissa bits through ~60 layers) and not
+# equal to it (the network did run in bf16). Slates are compared by their
+# sorted scores: random-init scores are near-ties, so the ids reorder.
+BF16_REL_TOL = 5e-2
+BF16_SCORE_RTOL = 5e-2
+PROFILE_ITERS = 5
+# Kernel groups of the profile; first match wins, on the CUDA kernel names
+# that torch.profiler reports.
+GROUPS = (
+    ('suppression kernel', r'suppression_kernel'),
+    ('mask_finalize kernel', r'mask_finalize_kernel'),
+    ('convolution / gemm', r'conv|gemm|xmma|cutlass|cudnn|sm90_|implicit'),
+    ('sort / top-k', r'sort|radix|topk|Sort'),
+    ('batch norm', r'batch_norm|bn_'),
+    ('gather / index', r'index|gather|scatter'),
+    ('elementwise / reduce', r'elementwise|reduce|vectorized|unrolled'),
+)
 
 
 def _time_ms(fn, warmup=3, iters=20):
@@ -135,7 +163,7 @@ def check_suppression(dev):
                 source='yolact_minimal_torch/csrc/suppression.cu',
                 replaces='yolact_minimal_tpu/ops/pallas_nms.py:67',
                 max_abs_err=err, agreement='exact, NaN positions equal',
-                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
 
@@ -162,6 +190,7 @@ def check_mask_finalize(dev):
         _check(ref.any().item(), 'kernel 2 fixture is empty')
         diff = got != ref
         mismatch = diff.float().mean().item()
+        # |kernel - plain| of 0/1 outputs: 1 as soon as one pixel flips
         worst, err = max(worst, mismatch), max(err, float(diff.any().item()))
         _check(mismatch < MASK_MISMATCH,
                f'mask kernel mismatch {mismatch} (do_crop={do_crop})')
@@ -190,13 +219,16 @@ def check_mask_finalize(dev):
     return dict(name='mask_finalize', route='cuda',
                 source='yolact_minimal_torch/csrc/mask_finalize.cu',
                 replaces='yolact_minimal_tpu/ops/pallas_masks.py:160',
-                max_abs_err=err, agreement=f'mismatch fraction {worst:.3g} < {MASK_MISMATCH}',
-                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, mismatch_frac=worst,
+                agreement=f'mismatch fraction {worst:.3g} < {MASK_MISMATCH}',
+                ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
 
 def phase_main_path(dev):
-    """res50_coco at 544, batch 16, bf16, seeded random init."""
+    """res50_coco at 544, batch 16, bf16, seeded random init. Returns the
+    launch counts, the Detector, its images and the untraced host ms per
+    detect_fixed call."""
     import torch
     from yolact_minimal_torch.config import get_config
     from yolact_minimal_torch.ops.mask_finalize import mask_finalize
@@ -206,25 +238,32 @@ def phase_main_path(dev):
     cfg = get_config('res50_coco', img_size=IMG, nms_score_thre=SCORE_THRE,
                      compute_dtype='bfloat16')
     det = Detector(cfg, device=dev, seed=0)
+    state = list(det.model.parameters()) + list(det.model.buffers())
+    _check(all(t.dtype in (torch.float32, torch.int64) for t in state),
+           'a parameter or BatchNorm statistic is not float32 under bf16')
     g = torch.Generator(device=dev).manual_seed(2)
     images = torch.randn(BATCH, IMG, IMG, 3, device=dev, generator=g)
     print(f'main path: res50_coco {IMG}x{IMG}, batch {BATCH}, compute_dtype '
-          f'bfloat16, nms_score_thre {SCORE_THRE} (random-init scores ~1/81 '
-          f'pass it, so the slate fills and the mask kernel does real work)')
+          f'bfloat16 (autocast; parameters and BatchNorm statistics float32), '
+          f'nms_score_thre {SCORE_THRE} (random-init scores ~1/81 pass it, so '
+          f'the slate fills and the mask kernel does real work)')
 
     suppression_iou_max.launches = 0
     mask_finalize.launches = 0
     for _ in range(2):                                  # warm-up
         dets, masks = det.detect_fixed(images, IMG)
     torch.cuda.synchronize()
-    n_iters = 10
-    t0 = time.perf_counter()
-    for _ in range(n_iters):
-        dets, masks = det.detect_fixed(images, IMG)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    print(f'detect_fixed bf16: {n_iters * BATCH / dt:.2f} img/s '
-          f'({dt / n_iters * 1e3:.2f} ms per batch of {BATCH}, host clock after synchronize)')
+    n_iters, windows = 10, []
+    for _ in range(3):                  # the host clock spreads: three windows
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            dets, masks = det.detect_fixed(images, IMG)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / n_iters * 1e3)
+    host_ms = statistics.median(windows)
+    print(f'detect_fixed bf16: {BATCH / host_ms * 1e3:.2f} img/s ({host_ms:.3f} ms per '
+          f'batch of {BATCH}, median of 3 windows of {n_iters} calls: '
+          f'{", ".join(f"{w:.3f}" for w in windows)} ms; host clock after synchronize)')
 
     _check(masks.shape == (BATCH, SLOTS, IMG, IMG) and masks.dtype == torch.bool,
            f'detect_fixed masks {tuple(masks.shape)} {masks.dtype}')
@@ -248,14 +287,47 @@ def phase_main_path(dev):
                 'mask_finalize': mask_finalize.launches}
     print(f'main-path launches: {launches}')
     _check(all(n > 0 for n in launches.values()), f'a kernel was not launched: {launches}')
-    return launches, images[:1].float()
+    return launches, det, images, host_ms
 
 
-def phase_f32_parity(dev, image):
-    """One image in float32, TF32 off: network outputs card vs CPU, then
+def phase_profile(det, images, host_ms):
+    """Device time of detect_fixed by kernel group, under torch.profiler, in
+    the process and on the inputs whose untraced host time phase 4 took."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_ITERS):
+            det.detect_fixed(images, IMG)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / PROFILE_ITERS * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_call = lambda e: e.self_device_time_total / 1e3 / PROFILE_ITERS   # ms
+    device_ms = sum(per_call(e) for e in kernels)
+    print(f'profile, {PROFILE_ITERS} traced detect_fixed calls: device time per call '
+          f'{device_ms:.3f} ms; host time per call {host_ms:.3f} ms untraced '
+          f'(phase 4), {traced_ms:.3f} ms traced')
+    if device_ms == 0:
+        print('  device time not measured: the profiler saw no CUDA kernel')
+        return
+    print(f'  device busy share (device ms / untraced host ms): {device_ms / host_ms:.3f}')
+    groups = dict.fromkeys([name for name, _ in GROUPS] + ['other'], 0.0)
+    for e in kernels:
+        groups[next((n for n, pat in GROUPS if re.search(pat, e.key)), 'other')] += per_call(e)
+    for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f'  {name:24s} {ms:9.3f} ms  {ms / device_ms:6.1%}')
+    print('  top kernels (ms per call, launches per call):')
+    for e in sorted(kernels, key=per_call, reverse=True)[:12]:
+        print(f'    {per_call(e):9.3f}  {e.count / PROFILE_ITERS:6.1f}  {e.key[:100]}')
+
+
+def phase_numerics(dev, det_bf16, image):
+    """One image. Float32 with TF32 off: network outputs card vs CPU, then
     the card's postprocess + mask kernel vs the CPU's plain versions on the
     same head outputs (random-init scores sit near 1/81, so two slates from
-    two forward passes may reorder under float noise)."""
+    two forward passes may reorder under float noise). Then the bf16
+    Detector of phase 4 against the card's float32 run."""
     import torch
     from yolact_minimal_torch.config import get_config
     from yolact_minimal_torch.ops.mask_finalize import mask_finalize
@@ -272,7 +344,9 @@ def phase_f32_parity(dev, image):
     with torch.inference_mode():
         out_gpu = gpu.model(image)
         out_cpu = cpu.model(image.cpu())
-    for name, a, b in zip(('class', 'box', 'coef', 'proto'), out_gpu, out_cpu):
+        out_bf16 = det_bf16.model(image)
+    names = ('class', 'box', 'coef', 'proto')
+    for name, a, b in zip(names, out_gpu, out_cpu):
         rel = ((a.cpu() - b).abs().max() / b.abs().max()).item()
         print(f'  network {name}: max |card - cpu| / max |cpu| = {rel:.3g}')
         _check(rel < NET_REL_TOL, f'network output {name} off by {rel}')
@@ -296,6 +370,22 @@ def phase_f32_parity(dev, image):
     _check(box_err <= POST_ATOL and score_err <= POST_ATOL, 'slate boxes/scores off')
     _check(mismatch < MASK_MISMATCH, f'mask mismatch {mismatch}')
 
+    print('bf16 (phase 4 Detector) against float32 on the card, same image:')
+    for name, a, b in zip(names, out_bf16, out_gpu):
+        _check(a.dtype == torch.float32, f'bf16 network output {name} is {a.dtype}')
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        print(f'  network {name}: max |bf16 - f32| / max |f32| = {rel:.3g} (< {BF16_REL_TOL})')
+        _check(0 < rel < BF16_REL_TOL, f'bf16 network output {name} off by {rel}')
+    with torch.inference_mode():
+        d_bf16 = detect_postprocess_batch(*out_bf16[:3], *post)
+    _check(bool(d_bf16.valid.all()) and bool(d_gpu.valid.all()), 'a slate did not fill')
+    s_bf16 = d_bf16.scores.sort(descending=True).values
+    s_f32 = d_gpu.scores.sort(descending=True).values
+    rel = ((s_bf16 - s_f32).abs().max() / s_f32.abs().max()).item()
+    print(f'  slate: sorted scores max |bf16 - f32| / max f32 = {rel:.3g} '
+          f'(< {BF16_SCORE_RTOL})')
+    _check(rel < BF16_SCORE_RTOL, f'bf16 slate scores off by {rel}')
+
 
 def main():
     import torch
@@ -309,9 +399,12 @@ def main():
     phase_build()
     kernels = [check_suppression(dev), check_mask_finalize(dev)]
     torch.cuda.empty_cache()
-    launches, image = phase_main_path(dev)
+    launches, det, images, host_ms = phase_main_path(dev)
+    phase_profile(det, images, host_ms)
+    image = images[:1].clone()
+    del images
     torch.cuda.empty_cache()
-    phase_f32_parity(dev, image)
+    phase_numerics(dev, det, image)
     for k in kernels:
         k['launches'] = launches[k['name']]
     print(json.dumps({'kernels': kernels}))

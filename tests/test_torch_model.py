@@ -13,7 +13,7 @@ from yolact_minimal_tpu.utils.weights import to_torch_state_dict
 from yolact_minimal_torch.config import CONFIG_REGISTRY, cfg_name_from_weight, get_config
 from yolact_minimal_torch.models.yolact import Yolact
 from yolact_minimal_torch.ops.boxes import make_anchors
-from yolact_minimal_torch.pipeline import load_detector
+from yolact_minimal_torch.pipeline import Detector, load_detector
 from yolact_minimal_torch.utils.weights import from_jax_variables, load_pth
 
 torch.set_num_threads(1)
@@ -62,6 +62,43 @@ def test_forward_matches_jax(jax_variables, img_size):
         assert o.dtype == np.float32
         err = np.abs(o - r).max() / np.abs(r).max()
         assert err < REL_TOL, f'{name}: relative error {err}'
+
+
+def test_bf16_forward_matches_jax(jax_variables):
+    # compute_dtype bfloat16 on both sides: convolutions in bf16, parameters
+    # and BatchNorm statistics in float32. Each side rounds at its own
+    # places (~1e-2 of each output's max against its own float32 run), so
+    # the two are held to 5e-2 of the output's max.
+    img = np.random.RandomState(5).normal(size=(2, 64, 64, 3)).astype(np.float32)
+    jm = JaxYolact(cfg=jax_config('res50_coco', img_size=64, compute_dtype='bfloat16'))
+    ref = jax.jit(lambda v, x: jm.apply(v, x, train=False))(jax_variables, img)
+
+    model = Yolact(get_config('res50_coco', img_size=64, compute_dtype='bfloat16'))
+    model.load_state_dict(from_jax_variables(jax_variables), strict=True)
+    with torch.no_grad():
+        ours = model.eval()(torch.from_numpy(img))
+    for name, r, o in zip(('class', 'box', 'coef', 'proto'), ref, ours):
+        r, o = np.asarray(r), o.numpy()
+        assert o.dtype == r.dtype == np.float32, name
+        err = np.abs(o - r).max() / np.abs(r).max()
+        assert err < 5e-2, f'{name}: relative error {err}'
+
+
+def test_bf16_detector_keeps_float32_state():
+    det = Detector(get_config('res50_coco', img_size=64, compute_dtype='bfloat16'),
+                   device='cpu', seed=1)
+    for name, t in list(det.model.named_parameters()) + list(det.model.named_buffers()):
+        assert t.dtype in (torch.float32, torch.int64), name
+    img = torch.from_numpy(np.random.RandomState(6).normal(size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        bf16 = det.model(img)
+        det.cfg.compute_dtype = 'float32'
+        f32 = det.model(img)
+    for name, a, b in zip(('class', 'box', 'coef', 'proto'), bf16, f32):
+        assert a.dtype == torch.float32, name
+        err = ((a - b).abs().max() / b.abs().max()).item()
+        # the network did run in bf16 (not equal), within bf16 rounding
+        assert 0 < err < 5e-2, f'{name}: relative error {err}'
 
 
 def test_pth_round_trip_loads_strict(jax_variables, tmp_path):

@@ -96,7 +96,7 @@ class PredictionHead(nn.Module):
 class Yolact(nn.Module):
     """Eval-mode YOLACT. `forward(img [B, S, S, 3])` returns (softmax class
     scores [B, A, C], box offsets [B, A, 4], mask coefs [B, A, 32], proto
-    [B, S/4, S/4, 32]), all float32 whatever the module's dtype."""
+    [B, S/4, S/4, 32]), all float32 whatever cfg.compute_dtype."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -121,12 +121,15 @@ class Yolact(nn.Module):
                 m.reset_running_stats()
 
     def forward(self, img: torch.Tensor):
-        dtype = next(self.parameters()).dtype
-        x = img.permute(0, 3, 1, 2).to(dtype)
-        _, c3, c4, c5 = self.backbone(x)
-        p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5)
-        proto = self.proto_net(p3)
-        outs = [self.prediction_layers(p) for p in (p3, p4, p5, p6, p7)]
+        # cfg.compute_dtype 'bfloat16' runs the convolutions in bf16 under
+        # autocast while parameters and BatchNorm statistics stay float32,
+        # as flax's Conv/BatchNorm(dtype=bf16) do in the JAX package.
+        bf16 = self.cfg.compute_dtype == 'bfloat16'
+        with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=bf16):
+            _, c3, c4, c5 = self.backbone(img.permute(0, 3, 1, 2))
+            p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5)
+            proto = self.proto_net(p3)
+            outs = [self.prediction_layers(p) for p in (p3, p4, p5, p6, p7)]
         class_pred, box_pred, coef_pred = (
             torch.cat([o[i] for o in outs], dim=1).float() for i in range(3))
         proto = proto.permute(0, 2, 3, 1).float().contiguous()

@@ -51,11 +51,13 @@ def _gather_lerp(in_size: int, out_size: int, align_corners: bool):
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     align_corners: bool = False) -> torch.Tensor:
-    """Bilinear-resize the two spatial axes of an NCHW tensor."""
+    """Bilinear-resize the two spatial axes of an NCHW tensor, in its dtype
+    (autocast computes the interpolation in float32; the JAX package's
+    resize stays in the compute dtype, so the result is cast back)."""
     if tuple(x.shape[-2:]) == (out_h, out_w):
         return x
     return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
-                         align_corners=align_corners)
+                         align_corners=align_corners).to(x.dtype)
 
 
 def resize_bilinear_hw_last(x: torch.Tensor, out_h: int, out_w: int,

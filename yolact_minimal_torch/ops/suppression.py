@@ -12,22 +12,11 @@ import ctypes
 import torch
 
 from yolact_minimal_torch.ops import _build
+from yolact_minimal_torch.ops.boxes import box_iou
 
 # Largest row length the kernel takes: its shared memory (21 bytes per
 # candidate) stays below the 48 KB a block gets without opting in.
 MAX_K = 2048
-
-
-def _plane_iou(x1, y1, x2, y2) -> torch.Tensor:
-    """Pairwise IoU from coordinate planes [..., K] -> [..., K, K]."""
-    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
-    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
-    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
-    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
-    inter = (ix2 - ix1).clamp(min=0.0) * (iy2 - iy1).clamp(min=0.0)
-    area = (x2 - x1) * (y2 - y1)
-    union = area[..., :, None] + area[..., None, :] - inter
-    return inter / union
 
 
 def suppression_iou_max_plain(x1, y1, x2, y2, valid) -> torch.Tensor:
@@ -35,7 +24,8 @@ def suppression_iou_max_plain(x1, y1, x2, y2, valid) -> torch.Tensor:
     against the earlier (higher-scored) valid candidates of its row. Invalid
     pairs give 0; a valid pair of zero-area boxes gives NaN, and the max
     keeps it."""
-    iou = _plane_iou(x1, y1, x2, y2)
+    boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+    iou = box_iou(boxes, boxes)
     pair = valid[..., None, :] & valid[..., :, None]
     iou = torch.where(pair, iou, torch.zeros((), dtype=iou.dtype, device=iou.device))
     iou = torch.triu(iou, diagonal=1)

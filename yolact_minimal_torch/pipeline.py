@@ -24,8 +24,6 @@ from yolact_minimal_torch.ops.nms import (Detections, assemble_masks,
                                           detect_postprocess_batch)
 from yolact_minimal_torch.utils.weights import load_pth
 
-_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
-
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """torch.device of `device`; raises for a CUDA device without a card."""
@@ -41,10 +39,10 @@ class Detector:
 
     `state_dict` is a reference-format state_dict (see utils/weights.py);
     without one the weights are the reference's Xavier-uniform init drawn
-    from a torch.Generator seeded with `seed`. With cfg.compute_dtype
-    'bfloat16' the module itself is cast to bf16 once (weights, activations
-    and BatchNorm in bf16); its four outputs are cast back to float32 and
-    the postprocess always runs in float32.
+    from a torch.Generator seeded with `seed`. Parameters and BatchNorm
+    statistics stay float32; with cfg.compute_dtype 'bfloat16' the network
+    runs under bf16 autocast (models/yolact.py). Its four outputs and the
+    postprocess are float32 either way.
     """
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
@@ -59,7 +57,6 @@ class Detector:
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.eval().to(device=self.device,
-                                     dtype=_DTYPES[cfg.compute_dtype],
                                      memory_format=torch.channels_last)
         self.anchors = torch.from_numpy(
             make_anchors(cfg.img_size, cfg.aspect_ratios, cfg.scales)).to(self.device)
