@@ -11,6 +11,9 @@ from yolact_minimal_torch.config import get_config
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
+from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
+from yolact_minimal_torch.ops.window_attention import (window_attention,
+                                                       window_attention_plain)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -78,4 +81,68 @@ def test_detector_runs_both_kernels(card):
     dets, masks = det.detect_fixed(images, 128)
     torch.cuda.synchronize()
     assert suppression_iou_max.launches > s0 and mask_finalize.launches > m0
+    assert masks.shape == (2, 100, 128, 128) and bool(dets.valid.all())
+
+
+# The swin kernels against their plain versions, as a share of max |plain|.
+# float32: sums in another order. bf16: the same rounding places, so at most
+# one ulp (2^-7 of the magnitude) where a float32 value rounds the other way.
+SWIN_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)]
+
+
+def _assert_close_rel(got, ref, tol):
+    got, ref = got.float(), ref.float()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('heads,nw', [(3, 16), (24, 9)])
+@pytest.mark.parametrize('masked', [False, True])
+def test_window_attention_kernel_matches_plain(card, dtype, tol, heads, nw, masked):
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    rng = np.random.RandomState(0)
+    c, side = heads * 32, int(nw ** 0.5) * 7
+    qkv = torch.from_numpy(rng.randn(3 * nw, 49, 3 * c).astype(np.float32)).to(card, dtype)
+    bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.1).astype(np.float32)).to(card, dtype)
+    region = torch.from_numpy(shifted_window_regions(side, side)).to(card) if masked else None
+    before = window_attention.launches
+    got = window_attention(qkv, bias, region, heads)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    ref = window_attention_plain(qkv, bias, region, heads)
+    assert got.dtype == dtype and got.shape == ref.shape == (3 * nw, 49, c)
+    _assert_close_rel(got, ref, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('c,rows', [(96, 1000), (192, 203), (384, 289), (768, 71)])
+def test_swin_mlp_kernel_matches_plain(card, dtype, tol, c, rows):
+    rng = np.random.RandomState(1)
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    x = dev(rng.randn(rows, c)).to(dtype)
+    params = (dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
+              dev(rng.randn(4 * c, c) * 0.05), dev(rng.randn(4 * c) * 0.05),
+              dev(rng.randn(c, 4 * c) * 0.05), dev(rng.randn(c) * 0.05))
+    before = mlp_block.launches
+    got = mlp_block(x, *params)
+    torch.cuda.synchronize()
+    assert mlp_block.launches == before + 1
+    ref = mlp_block_plain(x, *params)
+    assert got.dtype == dtype and got.shape == ref.shape
+    # rows are ragged against the kernel's 64- and 32-row blocks
+    _assert_close_rel(got, ref, tol)
+    with pytest.raises(ValueError, match='the kernel takes C in'):
+        mlp_block(x[:, :64].contiguous(), *(dev(rng.randn(*s)) for s in
+                                            ((64,), (64,), (256, 64), (256,), (64, 256), (64,))))
+
+
+def test_swin_detector_runs_all_four_kernels(card):
+    from yolact_minimal_torch.pipeline import Detector
+    det = Detector(get_config('swin_tiny_coco', img_size=128, nms_score_thre=0.002))
+    images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(0))
+    counters = (suppression_iou_max, mask_finalize, window_attention, mlp_block)
+    before = [f.launches for f in counters]
+    dets, masks = det.detect_fixed(images, 128)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 12, 12]
     assert masks.shape == (2, 100, 128, 128) and bool(dets.valid.all())

@@ -20,7 +20,9 @@ PORT_MODULES = sorted(
 
 
 def test_port_imports_no_jax():
-    assert 'yolact_minimal_torch.ops.mask_finalize' in PORT_MODULES
+    for module in ('ops.mask_finalize', 'ops.window_attention', 'ops.swin_mlp',
+                   'models.swin'):
+        assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'
         f'for m in {PORT_MODULES!r}: __import__(m)\n'
@@ -47,6 +49,8 @@ def test_detector_without_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Detector(cfg)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Detector(get_config('swin_tiny_coco', img_size=64))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
         load_detector('latest_res50_coco_1.pth')
     from yolact_minimal_torch.detect import main
     with pytest.raises(RuntimeError, match='CUDA is not available'):
@@ -58,6 +62,19 @@ def test_kernels_raise_on_a_device_they_do_not_take():
     x = torch.zeros(2, 8, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
         suppression_iou_max(x, x, x, x, torch.zeros(2, 8, dtype=torch.bool, device='meta'))
+
+
+def test_every_kernel_source_names_what_it_replaces():
+    sources = sorted((ROOT / 'yolact_minimal_torch' / 'csrc').glob('*.cu'))
+    assert [p.stem for p in sources] == ['mask_finalize', 'suppression', 'swin_mlp',
+                                         'window_attention']
+    for path in sources:
+        text = path.read_text()
+        assert 'Replaces the Pallas TPU kernel yolact_minimal_tpu/ops/' in text, path.name
+        assert 'extern "C" int ' + path.stem in text, path.name
+        assert 'cudaGetLastError' in text, path.name
+        wrapper = (ROOT / 'yolact_minimal_torch' / 'ops' / f'{path.stem}.py').read_text()
+        assert f"_build.load('{path.stem}')" in wrapper and '.launches += 1' in wrapper
 
 
 def test_kernel_build_names_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):

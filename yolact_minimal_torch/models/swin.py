@@ -1,0 +1,291 @@
+"""Swin-Tiny backbone, eval mode: tokens stay [B, H, W, C] inside.
+
+4x4 patch embed (dim 96) + 4 stages of shifted-window attention blocks,
+depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 7, MLP ratio 4, patch
+merging between stages, LayerNorm on the three FPN-facing outputs
+(192/384/768 channels at strides 8/16/32). Names and semantics follow
+`yolact_minimal_tpu/models/swin.py`; module names follow the reference
+state_dict (`patch_embed.proj`, `layers.{s}.blocks.{b}.attn.qkv`,
+`layers.{s}.downsample.reduction`, `norm{1,2,3}`), so a strict
+`load_state_dict` takes published key names.
+
+Every block runs two hand-written kernels: `ops/window_attention.py` between
+the qkv and proj Linears, and `ops/swin_mlp.py` for the whole MLP half. The
+window padding sizes, the shifted-window region ids and the relative-position
+index are data-independent numpy tables.
+
+`dtype` is the compute dtype: parameters stay float32, and each Linear keeps
+a copy cast once; LayerNorm runs in float32 and rounds its result, as flax's
+`LayerNorm(dtype=...)` does. Stochastic depth is inactive in eval and not
+ported yet.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
+from yolact_minimal_torch.ops.window_attention import window_attention
+
+WINDOW = 7
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index(window: int = WINDOW) -> np.ndarray:
+    """[N, N] indices into the (2w-1)^2 bias table for every token pair."""
+    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window), indexing='ij'))
+    flat = coords.reshape(2, -1)                            # [2, N]
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += window - 1
+    rel[:, :, 1] += window - 1
+    rel[:, :, 0] *= 2 * window - 1
+    return rel.sum(-1).astype(np.int32)                     # [N, N]
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_window_regions(hp: int, wp: int, window: int = WINDOW,
+                           shift: int = WINDOW // 2) -> np.ndarray:
+    """Static [nW, N] int32 region ids of the shifted-window partition: token
+    pairs in the same window with different ids must not attend to each
+    other. hp/wp are padded sizes."""
+    img = np.zeros((hp, wp), np.int32)
+    cnt = 0
+    for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+        for ws in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+            img[hs, ws] = cnt
+            cnt += 1
+    img = img.reshape(hp // window, window, wp // window, window)
+    return img.transpose(0, 2, 1, 3).reshape(-1, window * window)
+
+
+@functools.lru_cache(maxsize=None)
+def _regions_on(hp: int, wp: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(shifted_window_regions(hp, wp))).to(device)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B * nW, window*window, C]."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window, window, w // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
+
+
+def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+    """[B * nW, window*window, C] -> [B, H, W, C]."""
+    c = x.shape[-1]
+    b = x.shape[0] // ((h // window) * (w // window))
+    x = x.reshape(b, h // window, w // window, window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(dtype)
+
+
+class _Derived:
+    """A value derived from parameters, recomputed only after one of them was
+    written in place or moved."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    def get(self, params: Sequence[torch.Tensor], make):
+        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+        if key != self._key:
+            self._key, self._value = key, make()
+        return self._value
+
+
+class Linear(nn.Linear):
+    """nn.Linear that runs in `compute_dtype` on copies of its float32
+    parameters, cast once rather than on every call (eval only: the copies
+    carry no gradient)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+        self._cast = _Derived()
+
+    def cast(self) -> Tuple[torch.Tensor, ...]:
+        """(weight,) or (weight, bias) in the compute dtype."""
+        params = (self.weight,) if self.bias is None else (self.weight, self.bias)
+        return self._cast.get(
+            params, lambda: tuple(p.detach().to(self.compute_dtype) for p in params))
+
+    def forward(self, x):
+        weight, *bias = self.cast()
+        return F.linear(x.to(self.compute_dtype), weight, *bias)
+
+
+class WindowAttention(nn.Module):
+    """Per-window multi-head attention with relative position bias. `region`
+    is the [nW, N] int32 region-id map of the shifted partition (None for an
+    unshifted block)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * WINDOW - 1) ** 2, num_heads))
+        self.register_buffer(
+            'relative_position_index',
+            torch.from_numpy(relative_position_index().astype(np.int64)), persistent=False)
+        self._bias = _Derived()
+
+    def bias(self) -> torch.Tensor:
+        """[heads, N, N] in the compute dtype, gathered once per table."""
+        table = self.relative_position_bias_table
+        n = WINDOW * WINDOW
+
+        def make():
+            b = table.detach()[self.relative_position_index.reshape(-1)]
+            return b.reshape(n, n, -1).permute(2, 0, 1).to(self.dtype).contiguous()
+        return self._bias.get((table,), make)
+
+    def forward(self, x, region):
+        out = window_attention(self.qkv(x).contiguous(), self.bias(), region, self.num_heads)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    """Holds fc1 and fc2; SwinBlock hands their parameters to `mlp_block`:
+    the weights in the compute dtype, the biases in float32."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, compute_dtype=dtype)
+        self.fc2 = Linear(hidden, dim, compute_dtype=dtype)
+
+
+class SwinBlock(nn.Module):
+    """W-MSA / SW-MSA block on [B, H, W, C]. The input is padded bottom/right
+    to a multiple of the window with zeros AFTER norm1, and the regions are
+    those of the padded size."""
+
+    def __init__(self, dim: int, num_heads: int, shift: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.shift = shift
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = WindowAttention(dim, num_heads, dtype)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, dim * 4, dtype)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        shortcut = x
+        x = _layer_norm(x, self.norm1, self.dtype)
+        pad_b = (WINDOW - h % WINDOW) % WINDOW
+        pad_r = (WINDOW - w % WINDOW) % WINDOW
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        hp, wp = h + pad_b, w + pad_r
+        region = None
+        if self.shift > 0:
+            x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
+            region = _regions_on(hp, wp, x.device)
+
+        attended = self.attn(window_partition(x, WINDOW), region)
+        x = window_reverse(attended, WINDOW, hp, wp)
+        if self.shift > 0:
+            x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
+        if pad_b or pad_r:
+            x = x[:, :h, :w, :]
+        x = (shortcut + x).reshape(-1, c)
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        y = mlp_block(x, self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
+                      fc2.cast()[0], fc2.bias)
+        return y.reshape(b, h, w, c)
+
+
+class PatchMerging(nn.Module):
+    """2x2 spatial concat -> LayerNorm -> Linear 4C -> 2C. Channels are
+    [x0 x1 x2 x3] = (row, col) offsets (0,0), (1,0), (0,1), (1,1); odd sizes
+    pad first."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False, compute_dtype=dtype)
+
+    def forward(self, x):
+        _, h, w, _ = x.shape
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        return self.reduction(_layer_norm(x, self.norm, self.dtype))
+
+
+class SwinStage(nn.Module):
+    """`depth` blocks, alternating unshifted and shifted, then the optional
+    patch merging; returns (the blocks' output, the next stage's input)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype)
+            for i in range(depth))
+        self.downsample = PatchMerging(dim, dtype) if downsample else None
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return x, (x if self.downsample is None else self.downsample(x))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, embed_dim, 4, stride=4)
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+
+class SwinTiny(nn.Module):
+    """`forward(x [B, H, W, 3])` returns 4 [B, h, w, C] feature maps (96,
+    192, 384, 768 channels at strides 4/8/16/32) in the compute dtype;
+    outputs 1-3 are LayerNormed."""
+
+    def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(embed_dim)
+        self.layers = nn.ModuleList(
+            SwinStage(embed_dim * 2 ** i, depth, num_heads[i],
+                      downsample=i < len(depths) - 1, dtype=dtype)
+            for i, depth in enumerate(depths))
+        for i in (1, 2, 3):
+            setattr(self, f'norm{i}', nn.LayerNorm(embed_dim * 2 ** i, eps=LN_EPS))
+
+    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+        h, w = x.shape[1:3]
+        x = x.permute(0, 3, 1, 2)
+        if h % 4 or w % 4:
+            x = F.pad(x, (0, (4 - w % 4) % 4, 0, (4 - h % 4) % 4))
+        proj = self.patch_embed.proj
+        x = F.conv2d(x.to(self.dtype), proj.weight.to(self.dtype),
+                     proj.bias.to(self.dtype), stride=4).permute(0, 2, 3, 1)
+        x = _layer_norm(x, self.patch_embed.norm, self.dtype)
+        outs = []
+        for i, stage in enumerate(self.layers):
+            out, x = stage(x)
+            if i > 0:
+                out = _layer_norm(out, getattr(self, f'norm{i}'), self.dtype)
+            outs.append(out)
+        return tuple(outs)

@@ -1,7 +1,8 @@
 """YOLACT model assembly: backbone + FPN + ProtoNet + shared head.
 
-NCHW inside, as PyTorch's convolutions prefer; the public outputs keep the
-JAX package's layout: dense per-anchor predictions (softmax class scores,
+NCHW inside, as PyTorch's convolutions prefer (the swin backbone keeps its
+tokens [B, H, W, C] and hands the FPN permuted views); the public outputs
+keep the JAX package's layout: dense per-anchor predictions (softmax class scores,
 box offsets, mask coefs) in (rows, cols, ratios) anchor order and the
 prototype map as [B, H/4, W/4, 32]. Module names follow the reference
 state_dict (`fpn.lat_layers.0`, `proto_net.proto1.0`,
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from yolact_minimal_torch.config import Config
 from yolact_minimal_torch.models.resnet import ResNet
+from yolact_minimal_torch.models.swin import SwinTiny, WindowAttention
 from yolact_minimal_torch.ops.resize import resize_bilinear
 
 COEF_DIM = 32
@@ -100,25 +102,39 @@ class Yolact(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.backbone not in BACKBONE_LAYERS:
-            raise NotImplementedError(f'backbone {cfg.backbone!r} is not ported yet')
         self.cfg = cfg
-        self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone])
-        self.fpn = FPN((512, 1024, 2048))
+        if cfg.backbone in BACKBONE_LAYERS:
+            self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone])
+            self.fpn = FPN((512, 1024, 2048))
+        elif cfg.backbone == 'swin_tiny':
+            # The swin modules take their compute dtype at construction.
+            self.backbone = SwinTiny(dtype=getattr(torch, cfg.compute_dtype))
+            self.fpn = FPN((192, 384, 768))
+        else:
+            raise ValueError(f'Unknown backbone {cfg.backbone!r}')
         self.proto_net = ProtoNet()
         self.prediction_layers = PredictionHead(cfg.num_classes, len(cfg.aspect_ratios))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Xavier-uniform conv weights and zero biases (the reference init),
-        drawn from `generator`; BatchNorm to identity statistics."""
+        drawn from `generator`; BatchNorm to identity statistics. Swin:
+        truncated normal (std 0.02) Linear weights and bias tables, zero
+        biases, LayerNorm to identity."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Linear):
+                nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
+            elif isinstance(m, WindowAttention):
+                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
+                                      generator=generator)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
                 m.reset_running_stats()
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
+                nn.init.zeros_(m.bias)
 
     def forward(self, img: torch.Tensor):
         # cfg.compute_dtype 'bfloat16' runs the convolutions in bf16 under
@@ -126,7 +142,10 @@ class Yolact(nn.Module):
         # as flax's Conv/BatchNorm(dtype=bf16) do in the JAX package.
         bf16 = self.cfg.compute_dtype == 'bfloat16'
         with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=bf16):
-            _, c3, c4, c5 = self.backbone(img.permute(0, 3, 1, 2))
+            if isinstance(self.backbone, SwinTiny):
+                c3, c4, c5 = (t.permute(0, 3, 1, 2) for t in self.backbone(img)[1:])
+            else:
+                _, c3, c4, c5 = self.backbone(img.permute(0, 3, 1, 2))
             p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5)
             proto = self.proto_net(p3)
             outs = [self.prediction_layers(p) for p in (p3, p4, p5, p6, p7)]

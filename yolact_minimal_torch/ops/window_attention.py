@@ -1,0 +1,110 @@
+"""Shifted-window attention on packed qkv: per window and head,
+softmax(q k^T * hd^-0.5 + rel_bias[h] + (-100 where region ids differ)) v.
+
+`window_attention` launches the hand-written CUDA kernel
+(`csrc/window_attention.cu`) for tensors on the card and runs the plain
+PyTorch version, `window_attention_plain`, for tensors on the CPU. It counts
+its kernel launches in `window_attention.launches`.
+
+Rounding places, shared by the plain version, the kernel and the JAX
+package's kernel: `q * scale` is rounded to the compute dtype (the scale
+itself rounded first); scores, bias and the additive -100 mask add in
+float32; the softmax output is rounded to the compute dtype; p v accumulates
+in float32 and is rounded once.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from yolact_minimal_torch.ops import _build
+
+NEG = -100.0       # additive fill for pairs in different regions (not -inf)
+# What the kernel is compiled for: tokens per window and head width.
+KERNEL_TOKENS = 49
+KERNEL_HEAD_DIM = 32
+
+
+def window_attention_plain(qkv, bias, region: Optional[torch.Tensor],
+                           heads: int) -> torch.Tensor:
+    """qkv [B*nW, N, 3C] (q | k | v along the last axis, each head-major),
+    bias [heads, N, N] in qkv's dtype, region [nW, N] int32 or None
+    -> [B*nW, N, C] in qkv's dtype."""
+    bnw, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    dt = qkv.dtype
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(bnw, n, heads, hd) for i in range(3))
+    q = q * torch.tensor(hd ** -0.5, dtype=dt, device=qkv.device)
+    # products of two bf16 values are exact in float32: float() operands give
+    # the float32 accumulation the kernels have
+    attn = torch.einsum('bnhd,bmhd->bhnm', q.float(), k.float())
+    attn = attn + bias[None].float()
+    if region is not None:
+        nw = region.shape[0]
+        madd = torch.where(region[:, :, None] != region[:, None, :], NEG, 0.0)
+        attn = attn.reshape(bnw // nw, nw, heads, n, n) + madd[None, :, None].float()
+        attn = attn.reshape(bnw, heads, n, n)
+    attn = torch.softmax(attn, dim=-1).to(dt)
+    out = torch.einsum('bhnm,bmhd->bnhd', attn.float(), v.float()).to(dt)
+    return out.reshape(bnw, n, c)
+
+
+def _check(qkv, bias, region, heads):
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
+        raise ValueError(f'window_attention takes qkv [B*nW, N, 3C] with C a multiple '
+                         f'of heads={heads}, got {tuple(qkv.shape)}')
+    if qkv.dtype not in (torch.float32, torch.bfloat16) or not qkv.is_contiguous():
+        raise ValueError('window_attention: qkv must be contiguous float32 or bfloat16')
+    n = qkv.shape[1]
+    if bias.shape != (heads, n, n) or bias.dtype != qkv.dtype or \
+            bias.device != qkv.device or not bias.is_contiguous():
+        raise ValueError(f'window_attention: bias must be contiguous [{heads}, {n}, {n}] '
+                         f'of qkv\'s dtype and device, got {bias.dtype} {tuple(bias.shape)}')
+    if region is not None:
+        if region.dim() != 2 or region.shape[1] != n or region.dtype != torch.int32 or \
+                region.device != qkv.device or not region.is_contiguous():
+            raise ValueError(f'window_attention: region must be contiguous int32 [nW, {n}] '
+                             f'on qkv\'s device, got {region.dtype} {tuple(region.shape)}')
+        if region.shape[0] == 0 or qkv.shape[0] % region.shape[0]:
+            raise ValueError(f'window_attention: {qkv.shape[0]} windows are not a whole '
+                             f'number of images of {region.shape[0]} windows')
+
+
+def window_attention(qkv, bias, region: Optional[torch.Tensor],
+                     heads: int) -> torch.Tensor:
+    """Kernel wrapper: CUDA kernel for tensors on the card, plain version
+    for tensors on the CPU. Window w of the batch-major leading axis uses
+    region row w % nW. Returns [B*nW, N, C] in qkv's dtype."""
+    _check(qkv, bias, region, heads)
+    if qkv.device.type == 'cpu':
+        return window_attention_plain(qkv, bias, region, heads)
+    if qkv.device.type != 'cuda':
+        raise ValueError(f'window_attention: unsupported device {qkv.device}')
+    bnw, n, c3 = qkv.shape
+    c = c3 // 3
+    if n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM:
+        raise ValueError(f'window_attention: the kernel takes {KERNEL_TOKENS} tokens and '
+                         f'head width {KERNEL_HEAD_DIM}, got {n} and {c // heads}')
+    if heads > 65535:
+        raise ValueError(f'window_attention: grid too large (heads={heads})')
+    out = torch.empty((bnw, n, c), dtype=qkv.dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load('window_attention')
+    fn = lib.window_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
+                      None if region is None else region.data_ptr(), out.data_ptr(),
+                      bnw, heads, 0 if region is None else region.shape[0],
+                      int(qkv.dtype == torch.bfloat16), stream)
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0

@@ -1,8 +1,9 @@
 """High-level inference: forward + batched postprocess on the device.
 
 The device side (backbone -> FPN -> heads -> decode -> fast NMS -> masks) is
-eager PyTorch plus the two CUDA kernels: suppression inside the NMS, and the
-fused mask finalize behind `detect_fixed`. The host side only upsamples the
+eager PyTorch plus the CUDA kernels: suppression inside the NMS, the fused
+mask finalize behind `detect_fixed`, and, with the swin_tiny backbone, window
+attention and the MLP half of every block. The host side only upsamples the
 kept masks of one image to its original size and converts boxes to pixels.
 
 Entry points run on `cuda` unless the caller asks for `device='cpu'`; without
@@ -38,7 +39,8 @@ class Detector:
     """A Yolact model plus its postprocess, on one device.
 
     `state_dict` is a reference-format state_dict (see utils/weights.py);
-    without one the weights are the reference's Xavier-uniform init drawn
+    without one the weights are the reference's init (Xavier-uniform
+    convolutions; truncated normal for swin's Linears and bias tables) drawn
     from a torch.Generator seeded with `seed`. Parameters and BatchNorm
     statistics stay float32; with cfg.compute_dtype 'bfloat16' the network
     runs under bf16 autocast (models/yolact.py). Its four outputs and the
