@@ -10,8 +10,10 @@ Phases, in order; any failure exits nonzero:
      one process per source, started together);
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, timed with CUDA events (median of 20 after warm-up); the
-     two swin kernels at each of the four stage shapes, in bf16 and float32,
-     shifted and unshifted;
+     four swin kernels at each of the four stage shapes, in bf16 and float32,
+     shifted and unshifted (the whole-block kernel with the padded map's
+     rowmask and once without), the two block kernels beside the times of
+     what they replace;
   4. a main path at full width: res50_coco at 544, batch 16, seeded random
      weights, bf16: Detector.detect_fixed for a few batches (img/s, host
      clock, untraced), then Detector.__call__ + postprocess_host on two
@@ -25,17 +27,24 @@ Phases, in order; any failure exits nonzero:
      masks (kernels) against the CPU's plain versions on the same head
      outputs; then phase 4's bf16 network and slate against the card's
      float32 run;
-  7. phases 4-6 again for swin_tiny_coco (544, batch 16, bf16), whose path
-     launches all four kernels: window attention and the MLP half-block 12
-     times each per forward.
+  7. phases 4-6 again for swin_tiny_coco (544, batch 16, bf16), four times
+     on one seeded Detector switched between its block forms: 'composed'
+     (window attention and the MLP half-block, 12 launches each a forward),
+     'attn_block' (the attention half-block kernel and the MLP half-block, 12
+     each), 'whole' (the whole-block kernel, 12) and 'mixed' (whole at stages
+     0-1, composed at stages 2-3); each path must launch its forms' kernels
+     and no other swin kernel, and its float32 network outputs are
+     also held to the composed form's on the card. Then each swin stage's
+     blocks alone in each form, timed with CUDA events.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
 
 In the kernels line `max_abs_err` is the largest |kernel - plain| over the
 output; for the bool masks of mask_finalize that is 0 or 1, and the stated
 tolerance holds `mismatch_frac`, the share of mask pixels that differ.
-`launches` counts the res50_coco path for kernels 1-2 and the swin_tiny_coco
-path for kernels 3-4; `launches_by_path` has both. `bound_ms` is held to the
+`launches` counts the res50_coco path for kernels 1-2, the composed
+swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
+the 'whole' path for kernel 6; `launches_by_path` has all five paths. `bound_ms` is held to the
 peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four.
 """
@@ -82,6 +91,21 @@ SWIN_BF16_REL_TOL = 2.0 ** -7
 SWIN_STAGES = ((6400, 400, 96, 3, 295936), (1600, 100, 192, 6, 73984),
                (400, 25, 384, 12, 18496), (144, 9, 768, 24, 4624))
 SWIN_DEPTHS = (2, 2, 6, 2)
+# (side of the stage's feature map, side padded to a multiple of the window)
+SWIN_MAPS = ((136, 140), (68, 70), (34, 35), (17, 21))
+# The swin kernels each block form launches, once per block and forward.
+SWIN_KERNELS = ('window_attention', 'swin_mlp', 'attn_block', 'swin_block')
+SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
+                      'attn_block': ('attn_block', 'swin_mlp'),
+                      'whole': ('swin_block',)}
+# The swin main paths: the form of each stage's blocks. 'mixed' takes for each
+# stage the form that the stage table (phase_stage_forms) found fastest on an
+# H100 at 700 W: the whole-block kernel at stages 0-1, the composed form after.
+SWIN_PATHS = {'composed': ('composed',) * 4, 'attn_block': ('attn_block',) * 4,
+              'whole': ('whole',) * 4, 'mixed': ('whole', 'whole', 'composed', 'composed')}
+# Float32 network outputs of two block forms on the card: the same function
+# up to summation order, each output within 1e-4 of its largest magnitude.
+FORM_REL_TOL = 1e-4
 # Kernel groups of the profile; first match wins, on the CUDA kernel names
 # that torch.profiler reports.
 GROUPS = (
@@ -89,6 +113,8 @@ GROUPS = (
     ('mask_finalize kernel', r'mask_finalize_kernel'),
     ('window_attention kernel', r'window_attention_kernel'),
     ('swin_mlp kernel', r'mlp_bf16_kernel|mlp_f32_kernel'),
+    ('attn_block kernel', r'attn_block_bf16_kernel|attn_block_f32_kernel'),
+    ('swin_block kernel', r'swin_block_bf16_kernel|swin_block_f32_kernel'),
     ('layer norm', r'layer_norm|LayerNorm'),
     ('convolution / gemm', r'conv|gemm|xmma|cutlass|cudnn|sm90_|implicit|nvjet|cublas'),
     ('copy / cast / roll / pad', r'copy_kernel|roll_cuda|constant_pad|CatArray'),
@@ -150,7 +176,8 @@ def phase_env():
 def phase_build():
     from yolact_minimal_torch.ops import _build
     t0 = time.perf_counter()
-    libs = _build.build(['suppression', 'mask_finalize', 'window_attention', 'swin_mlp'])
+    libs = _build.build(['suppression', 'mask_finalize', 'window_attention', 'swin_mlp',
+                         'attn_block', 'swin_block'])
     print(f'built {sorted(libs)} in {time.perf_counter() - t0:.2f} s')
 
 
@@ -401,35 +428,226 @@ def check_swin_mlp(dev):
                 bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
                 library_ms=None, per_stage=per_stage)
 
+def _block_inputs(dev, g, stage):
+    """Seeded inputs of the two block kernels at stage `stage` of swin_tiny
+    544/b16: float32 masters (x, LayerNorm and Linear parameters scaled so
+    that every activation stays O(1) at every width, relative-position bias),
+    and the real tables of the padded map: region ids of the shifted
+    partition and the rowmasks of the unshifted and the shifted block."""
+    import torch
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    bnw, nw, c, heads, _ = SWIN_STAGES[stage]
+    side, padded = SWIN_MAPS[stage]
+    _check(nw == (padded // 7) ** 2, 'SWIN_STAGES and SWIN_MAPS disagree')
+    rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    p = dict(
+        x=rand(bnw, 49, c), bias=0.1 * rand(heads, 49, 49),
+        ln1=(1.0 + 0.1 * rand(c), 0.1 * rand(c)), ln2=(1.0 + 0.1 * rand(c), 0.1 * rand(c)),
+        qkv=(rand(3 * c, c) * c ** -0.5, 0.05 * rand(3 * c)),
+        proj=(rand(c, c) * c ** -0.5, 0.05 * rand(c)),
+        fc1=(rand(4 * c, c) * c ** -0.5, 0.05 * rand(4 * c)),
+        fc2=(rand(c, 4 * c) * (4 * c) ** -0.5, 0.05 * rand(c)),
+        region=torch.from_numpy(shifted_window_regions(padded, padded)).to(dev),
+        rowmask={shift: torch.from_numpy(pad_rowmask(side, side, padded, padded, shift)).to(dev)
+                 for shift in (0, 3)})
+    _check(0 < p['rowmask'][3].mean().item() < 1, 'the rowmask marks no padding')
+    return p
+
+
+def _hold_to_plain(kernel, plain, what, shape, dtype, tol):
+    """Run both, synchronise, check type, shape and the stated limit; returns
+    (max |kernel - plain|, the same as a share of max |plain|)."""
+    import torch
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    _check(got.dtype == dtype and tuple(got.shape) == tuple(shape), f'{what}: output type')
+    _check(torch.isfinite(got.float()).all().item(), f'{what}: non-finite output')
+    err, rel = _rel_err(got, ref)
+    _check(rel <= tol, f'{what} {dtype}: |kernel - plain| {err:.3g} is {rel:.3g} of max '
+           f'|plain| (> {tol:.3g})')
+    return err, rel
+
+
+def _block_ops(stage, whole):
+    """Operations of one launch: the qkv, q k^T, p v and proj products, and
+    the two MLP products for the whole block."""
+    bnw, _, c, _, _ = SWIN_STAGES[stage]
+    rows = bnw * 49
+    return 2 * rows * c * 3 * c + 4 * rows * 49 * c + 2 * rows * c * c + \
+        (16 * rows * c * c if whole else 0)
+
+
+def check_attn_block(dev, attention):
+    """Kernel 5 at the four stage shapes: bf16 and float32, shifted and
+    unshifted, against the plain version; timed in bf16 on the shifted form,
+    beside the composed path's pieces for the same rows: cuBLAS qkv, kernel 3,
+    cuBLAS proj in one timing, and kernel 3's own time from this run."""
+    import torch
+    import torch.nn.functional as F
+    from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
+    from yolact_minimal_torch.ops.window_attention import window_attention
+    g = torch.Generator(device=dev).manual_seed(5)
+    per_stage = []
+    for stage, (bnw, nw, c, heads, _) in enumerate(SWIN_STAGES):
+        p = _block_inputs(dev, g, stage)
+        worst = {}
+        for dtype, tol in ((torch.float32, SWIN_F32_REL_TOL), (torch.bfloat16, SWIN_BF16_REL_TOL)):
+            x, bias = p['x'].to(dtype), p['bias'].to(dtype)
+            for reg in (None, p['region']):
+                args = (x, *p['qkv'], bias, reg, *p['proj'], heads)
+                what = f'attn_block stage {stage} {"shifted" if reg is not None else "unshifted"}'
+                worst[dtype] = max(worst.get(dtype, (0.0, 0.0)), _hold_to_plain(
+                    lambda: attn_block(*args), lambda: attn_block_plain(*args), what,
+                    (bnw, 49, c), dtype, tol))
+        args32 = (p['x'], *p['qkv'], p['bias'], p['region'], *p['proj'], heads)
+        f32_ms = _time_ms(lambda: attn_block(*args32), warmup=0, iters=2)
+        # bf16 weights once, as models/swin.py hands them over
+        bf = torch.bfloat16
+        x, bias = p['x'].to(bf), p['bias'].to(bf)
+        wqkv, wproj = p['qkv'][0].to(bf), p['proj'][0].to(bf)
+        args = (x, wqkv, p['qkv'][1], bias, p['region'], wproj, p['proj'][1], heads)
+        ms = _time_ms(lambda: attn_block(*args))
+        plain_ms = _time_ms(lambda: attn_block_plain(*args), warmup=1, iters=5)
+        bqkv, bproj = p['qkv'][1].to(bf), p['proj'][1].to(bf)
+        composed_ms = _time_ms(lambda: F.linear(window_attention(
+            F.linear(x, wqkv, bqkv), bias, p['region'], heads), wproj, bproj))
+        n_bytes = (2 * x.numel() + wqkv.numel() + wproj.numel() + bias.numel()) * 2 + \
+            (4 * c + p['region'].numel()) * 4
+        bound, by = _bound_ms(n_bytes, _block_ops(stage, False), BF16_PEAK)
+        k3 = attention['per_stage'][stage]['ms']
+        print(f'kernel attn_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms, '
+              f'plain {plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms '
+              f'({by}); what it replaces, this run: cuBLAS qkv + kernel 3 + cuBLAS proj '
+              f'{composed_ms:.4f} ms (kernel 3 alone {k3:.4f}); |kernel - plain| / max |plain|: '
+              f'bf16 {worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
+              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g})')
+        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, plain_ms=plain_ms,
+                              f32_ms=f32_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                              composed_ms=composed_ms, window_attention_ms=k3,
+                              max_abs_err=worst[bf][0],
+                              max_abs_err_f32=worst[torch.float32][0]))
+        del p, x, args, args32
+        torch.cuda.empty_cache()
+    top = per_stage[0]
+    return dict(name='attn_block', route='cuda', source='yolact_minimal_torch/csrc/attn_block.cu',
+                replaces='yolact_minimal_tpu/ops/window_attention.py:316',
+                max_abs_err=top['max_abs_err'],
+                agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
+                          f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes, shifted '
+                          f'and unshifted',
+                ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
+                bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
+                library_ms=None, per_stage=per_stage)
+
+
+def check_swin_block(dev, attention, mlp):
+    """Kernel 6 at the four stage shapes: bf16 and float32, unshifted and
+    shifted with the padded map's rowmask, and once with rowmask=None, against
+    the plain version; timed in bf16 on the shifted form, beside kernel 3 +
+    kernel 4 at the same stage from this run."""
+    import torch
+    from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
+    g = torch.Generator(device=dev).manual_seed(6)
+    per_stage = []
+    for stage, (bnw, nw, c, heads, _) in enumerate(SWIN_STAGES):
+        p = _block_inputs(dev, g, stage)
+
+        def block_args(x, bias, rowmask, region, cast=lambda w: w):
+            return (x, rowmask, *p['ln1'], cast(p['qkv'][0]), p['qkv'][1], bias, region,
+                    cast(p['proj'][0]), p['proj'][1], *p['ln2'], cast(p['fc1'][0]), p['fc1'][1],
+                    cast(p['fc2'][0]), p['fc2'][1], heads)
+        worst = {}
+        for dtype, tol in ((torch.float32, SWIN_F32_REL_TOL), (torch.bfloat16, SWIN_BF16_REL_TOL)):
+            x, bias = p['x'].to(dtype), p['bias'].to(dtype)
+            for what, rowmask, reg in (('unshifted', p['rowmask'][0], None),
+                                       ('shifted', p['rowmask'][3], p['region']),
+                                       ('shifted, no rowmask', None, p['region'])):
+                args = block_args(x, bias, rowmask, reg)
+                worst[dtype] = max(worst.get(dtype, (0.0, 0.0)), _hold_to_plain(
+                    lambda: swin_block(*args), lambda: swin_block_plain(*args),
+                    f'swin_block stage {stage} {what}', (bnw, 49, c), dtype, tol))
+        args32 = block_args(p['x'], p['bias'], p['rowmask'][3], p['region'])
+        f32_ms = _time_ms(lambda: swin_block(*args32), warmup=0, iters=2)
+        bf = torch.bfloat16
+        args = block_args(p['x'].to(bf), p['bias'].to(bf), p['rowmask'][3], p['region'],
+                          cast=lambda w: w.to(bf))
+        ms = _time_ms(lambda: swin_block(*args))
+        plain_ms = _time_ms(lambda: swin_block_plain(*args), warmup=1, iters=5)
+        n_bytes = (2 * bnw * 49 * c + 12 * c * c + heads * 49 * 49) * 2 + \
+            (13 * c + 2 * nw * 49) * 4
+        bound, by = _bound_ms(n_bytes, _block_ops(stage, True), BF16_PEAK)
+        k3, k4 = attention['per_stage'][stage]['ms'], mlp['per_stage'][stage]['ms']
+        print(f'kernel swin_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms '
+              f'({_block_ops(stage, True) / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, '
+              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); kernels 3 + 4 at this '
+              f'stage, this run: {k3:.4f} + {k4:.4f} = {k3 + k4:.4f} ms (without the cuBLAS qkv and '
+              f'proj, LayerNorms and adds between them); |kernel - plain| / max |plain|: bf16 '
+              f'{worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
+              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g})')
+        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, plain_ms=plain_ms,
+                              f32_ms=f32_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                              window_attention_ms=k3, swin_mlp_ms=k4,
+                              max_abs_err=worst[bf][0],
+                              max_abs_err_f32=worst[torch.float32][0]))
+        del p, args, args32
+        torch.cuda.empty_cache()
+    top = per_stage[0]
+    return dict(name='swin_block', route='cuda', source='yolact_minimal_torch/csrc/swin_block.cu',
+                replaces='yolact_minimal_tpu/ops/swin_block.py:198',
+                max_abs_err=top['max_abs_err'],
+                agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
+                          f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes, unshifted, '
+                          f'shifted and without rowmask',
+                ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
+                bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
+                library_ms=None, per_stage=per_stage)
+
+
+def _swin_launches(path, forwards=1):
+    """The launches of each swin kernel that `forwards` forward passes on swin
+    path `path` must make: every block its form's kernels, once."""
+    return {k: forwards * sum(depth for depth, form in zip(SWIN_DEPTHS, SWIN_PATHS[path])
+                              if k in SWIN_FORM_LAUNCHES[form]) for k in SWIN_KERNELS}
+
 
 def _counters(name):
     """The launch-counting wrappers of the kernels on a config's path."""
+    from yolact_minimal_torch.ops.attn_block import attn_block
     from yolact_minimal_torch.ops.mask_finalize import mask_finalize
     from yolact_minimal_torch.ops.suppression import suppression_iou_max
+    from yolact_minimal_torch.ops.swin_block import swin_block
     from yolact_minimal_torch.ops.swin_mlp import mlp_block
     from yolact_minimal_torch.ops.window_attention import window_attention
     counters = {'suppression_iou_max': suppression_iou_max, 'mask_finalize': mask_finalize}
     if name.startswith('swin'):
-        counters.update(window_attention=window_attention, swin_mlp=mlp_block)
+        counters.update(window_attention=window_attention, swin_mlp=mlp_block,
+                        attn_block=attn_block, swin_block=swin_block)
     return counters
 
 
-def phase_main_path(dev, name, n_iters=10):
+def phase_main_path(dev, name, form='composed', det=None, images=None, n_iters=10):
     """`name` (res50_coco or swin_tiny_coco) at 544, batch 16, bf16, seeded
-    random init. Returns the launch counts, the Detector, its images and the
-    untraced host ms per detect_fixed call."""
+    random init; for swin on path `form` of SWIN_PATHS, on the Detector and
+    images of an earlier call when given, switched to that path's forms. Returns the launch
+    counts, the Detector, its images and the untraced host ms per
+    detect_fixed call."""
     import torch
     from yolact_minimal_torch.config import get_config
     from yolact_minimal_torch.pipeline import Detector
 
-    cfg = get_config(name, img_size=IMG, nms_score_thre=SCORE_THRE,
-                     compute_dtype='bfloat16')
-    det = Detector(cfg, device=dev, seed=0)
+    if det is None:
+        cfg = get_config(name, img_size=IMG, nms_score_thre=SCORE_THRE,
+                         compute_dtype='bfloat16')
+        det = Detector(cfg, device=dev, seed=0)
+        g = torch.Generator(device=dev).manual_seed(2)
+        images = torch.randn(BATCH, IMG, IMG, 3, device=dev, generator=g)
     state = list(det.model.parameters()) + list(det.model.buffers())
     _check(all(t.dtype in (torch.float32, torch.int64) for t in state),
            'a parameter or buffer is not float32 under bf16')
-    g = torch.Generator(device=dev).manual_seed(2)
-    images = torch.randn(BATCH, IMG, IMG, 3, device=dev, generator=g)
+    if name.startswith('swin'):
+        det.model.backbone.set_block_forms(SWIN_PATHS[form])
+        name = f'{name}/{form}'
     print(f'main path: {name} {IMG}x{IMG}, batch {BATCH}, compute_dtype bfloat16 '
           f'(parameters and BatchNorm statistics float32), nms_score_thre {SCORE_THRE} '
           f'(random-init scores ~1/81 pass it, so the slate fills and the mask kernel '
@@ -473,12 +691,14 @@ def phase_main_path(dev, name, n_iters=10):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f'{name} main-path launches: {launches}')
-    _check(all(n > 0 for n in launches.values()), f'a kernel was not launched: {launches}')
+    forwards = launches['suppression_iou_max']          # one per forward pass
+    _check(forwards > 0 and launches['mask_finalize'] > 0,
+           f'a kernel was not launched: {launches}')
     if 'swin_mlp' in launches:
-        forwards = launches['suppression_iou_max']      # one per forward pass
-        per_forward = sum(SWIN_DEPTHS)
-        _check(launches['window_attention'] == launches['swin_mlp'] == per_forward * forwards,
-               f'expected {per_forward} launches of each swin kernel per forward: {launches}')
+        # every block runs its form's kernels once a forward, and no other's
+        expected = _swin_launches(form, forwards)
+        _check(all(launches[k] == n for k, n in expected.items()),
+               f'form {form}: expected {expected} swin kernel launches, got {launches}')
     return launches, det, images, host_ms
 
 
@@ -508,19 +728,56 @@ def phase_profile(det, images, host_ms):
     for e in kernels:
         groups[next((n for n, pat in GROUPS if re.search(pat, e.key)), 'other')] += per_call(e)
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f'  {name:24s} {ms:9.3f} ms  {ms / device_ms:6.1%}')
+        if ms:
+            print(f'  {name:24s} {ms:9.3f} ms  {ms / device_ms:6.1%}')
     print('  top kernels (ms per call, launches per call):')
     for e in sorted(kernels, key=per_call, reverse=True)[:16]:
         print(f'    {per_call(e):9.3f}  {e.count / PROFILE_ITERS:6.1f}  {e.key[:100]}')
 
 
-def phase_numerics(dev, name, det_bf16, image):
-    """One image through config `name`. Float32 with TF32 off: network
-    outputs card vs CPU (on the CPU the swin kernels' plain versions run),
-    then the card's postprocess + mask kernel vs the CPU's plain versions on
-    the same head outputs (random-init scores sit near 1/81, so two slates from
-    two forward passes may reorder under float noise). Then the bf16
-    Detector of phase 4 against the card's float32 run."""
+def phase_stage_forms(det, dev):
+    """Each swin stage alone in each block form: its blocks (without the patch
+    merging) on a seeded bf16 map of the stage's size at 544, batch 16, timed
+    with CUDA events. Says which form is fastest at which stage, glue
+    included."""
+    import torch
+    backbone = det.model.backbone
+    g = torch.Generator(device=dev).manual_seed(7)
+    table = {}
+    with torch.inference_mode():
+        for form in SWIN_FORM_LAUNCHES:
+            backbone.set_block_forms(form)
+            table[form] = []
+            for stage, (side, _), (_, _, c, _, _) in zip(backbone.layers, SWIN_MAPS, SWIN_STAGES):
+                x = torch.randn(BATCH, side, side, c, device=dev, generator=g).to(backbone.dtype)
+
+                def blocks(x=x, stage=stage):
+                    for block in stage.blocks:
+                        x = block(x)
+                    return x
+                out = blocks()
+                _check(out.shape == x.shape and torch.isfinite(out.float()).all().item(),
+                       f'stage output in form {form}')
+                table[form].append(_time_ms(blocks, warmup=2, iters=10))
+    backbone.set_block_forms('composed')
+    print(f'swin stages alone, bf16, batch {BATCH}, ms for the blocks of stages 0-3 (depths '
+          f'{SWIN_DEPTHS}), kernels and the glue around them:')
+    for form, row in table.items():
+        print(f'  {form:10s} ' + ' / '.join(f'{ms:.4f}' for ms in row) + f'   sum {sum(row):.4f}')
+    best = [min(table, key=lambda f: table[f][i]) for i in range(len(SWIN_MAPS))]
+    print(f'  fastest form per stage: {best}, sum '
+          f'{sum(table[f][i] for i, f in enumerate(best)):.4f} ms')
+
+
+def phase_numerics(dev, name, det_bf16, image, form='composed', composed_out=None):
+    """One image through config `name` (swin: on path `form` of SWIN_PATHS). Float32
+    with TF32 off: network outputs card vs CPU (on the CPU the swin kernels'
+    plain versions run), for a fused form also against `composed_out`, the
+    composed form's float32 outputs on the card; then the card's postprocess +
+    mask kernel vs the CPU's plain versions on the same head outputs
+    (random-init scores sit near 1/81, so two slates from two forward passes
+    may reorder under float noise). Then the bf16 Detector of phase 4 against
+    the card's float32 run. Returns the card's float32 network outputs."""
     import torch
     from yolact_minimal_torch.config import get_config
     from yolact_minimal_torch.ops.mask_finalize import mask_finalize
@@ -529,13 +786,22 @@ def phase_numerics(dev, name, det_bf16, image):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f'{name} f32 parity: torch.backends.cudnn.allow_tf32=False, '
+    print(f'{name} {form} f32 parity: torch.backends.cudnn.allow_tf32=False, '
           'torch.backends.cuda.matmul.allow_tf32=False')
     cfg = get_config(name, img_size=IMG, nms_score_thre=SCORE_THRE)
     gpu = Detector(cfg, device=dev, seed=0)
     cpu = Detector(cfg, device='cpu', seed=0)
+    if name.startswith('swin'):
+        gpu.model.backbone.set_block_forms(SWIN_PATHS[form])
+        cpu.model.backbone.set_block_forms(SWIN_PATHS[form])
+    counters = _counters(name)
+    before = {k: fn.launches for k, fn in counters.items()}
     with torch.inference_mode():
         out_gpu = gpu.model(image)
+        if name.startswith('swin'):     # the float32 run went through this form's kernels
+            ran = {k: counters[k].launches - before[k] for k in SWIN_KERNELS}
+            expected = _swin_launches(form)
+            _check(ran == expected, f'float32 {form}: expected launches {expected}, got {ran}')
         out_cpu = cpu.model(image.cpu())
         out_bf16 = det_bf16.model(image)
     names = ('class', 'box', 'coef', 'proto')
@@ -543,6 +809,14 @@ def phase_numerics(dev, name, det_bf16, image):
         rel = ((a.cpu() - b).abs().max() / b.abs().max()).item()
         print(f'  network {out}: max |card - cpu| / max |cpu| = {rel:.3g}')
         _check(rel < NET_REL_TOL, f'network output {out} off by {rel}')
+    if composed_out is not None:
+        for out, a, b in zip(names, out_gpu, composed_out):
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            print(f'  network {out}: max |{form} - composed| / max |composed| on the card = '
+                  f'{rel:.3g} (< {FORM_REL_TOL})')
+            # 0 is possible: in float32 the half-block kernel sums in index
+            # order, as cuBLAS does at these sizes
+            _check(rel < FORM_REL_TOL, f'form {form}: network output {out} off by {rel}')
 
     post = (gpu.anchors, SCORE_THRE, cfg.nms_iou_thre, cfg.top_k, cfg.max_detections,
             cfg.nms_pre_topk)
@@ -578,6 +852,7 @@ def phase_numerics(dev, name, det_bf16, image):
     print(f'  slate: sorted scores max |bf16 - f32| / max f32 = {rel:.3g} '
           f'(< {BF16_SCORE_RTOL})')
     _check(rel < BF16_SCORE_RTOL, f'bf16 slate scores off by {rel}')
+    return out_gpu
 
 
 def main():
@@ -592,20 +867,29 @@ def main():
     phase_build()
     kernels = [check_suppression(dev), check_mask_finalize(dev),
                check_window_attention(dev), check_swin_mlp(dev)]
+    kernels += [check_attn_block(dev, kernels[2]), check_swin_block(dev, *kernels[2:])]
     torch.cuda.empty_cache()
     by_path = {}
-    for name in ('res50_coco', 'swin_tiny_coco'):
-        by_path[name], det, images, host_ms = phase_main_path(dev, name)
-        phase_profile(det, images, host_ms)
-        image = images[:1].clone()
-        del images
+    for name, forms in (('res50_coco', ('composed',)), ('swin_tiny_coco', tuple(SWIN_PATHS))):
+        det = images = composed_out = None
+        for form in forms:
+            path = name if len(forms) == 1 else f'{name}/{form}'
+            by_path[path], det, images, host_ms = phase_main_path(dev, name, form, det, images)
+            phase_profile(det, images, host_ms)
+            out = phase_numerics(dev, name, det, images[:1].clone(), form, composed_out)
+            composed_out = out if form == 'composed' else composed_out
+            torch.cuda.empty_cache()
+        if name.startswith('swin'):
+            phase_stage_forms(det, dev)
+        del det, images, composed_out
         torch.cuda.empty_cache()
-        phase_numerics(dev, name, det, image)
-        del det
-        torch.cuda.empty_cache()
+    # `launches` is the count on the path that runs the kernel
+    own_path = {'suppression_iou_max': 'res50_coco', 'mask_finalize': 'res50_coco',
+                'window_attention': 'swin_tiny_coco/composed', 'swin_mlp': 'swin_tiny_coco/composed',
+                'attn_block': 'swin_tiny_coco/attn_block', 'swin_block': 'swin_tiny_coco/whole'}
     for k in kernels:
-        path = 'res50_coco' if k['name'] in by_path['res50_coco'] else 'swin_tiny_coco'
-        k['launches'] = by_path[path][k['name']]
+        k['launches'] = by_path[own_path[k['name']]][k['name']]
+        _check(k['launches'] > 0, f'kernel {k["name"]} was not launched on its path')
         k['launches_by_path'] = {p: c[k['name']] for p, c in by_path.items() if k['name'] in c}
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from yolact_minimal_torch.config import get_config
+from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
+from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
 from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
 from yolact_minimal_torch.ops.window_attention import (window_attention,
                                                        window_attention_plain)
@@ -136,13 +138,74 @@ def test_swin_mlp_kernel_matches_plain(card, dtype, tol, c, rows):
                                             ((64,), (64,), (256, 64), (256,), (64, 256), (64,))))
 
 
-def test_swin_detector_runs_all_four_kernels(card):
+def _block_params(card, rng, c, heads, nw, dtype, masked, padded):
+    """x, rowmask, ln1, wqkv, bqkv, bias, region, wproj, bproj, ln2, k1, b1,
+    k2, b2 as swin_block takes them; 3 images of nw windows (no multiple of
+    any tile), the last row and column of the map padding."""
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(card)
+    side = int(nw ** 0.5) * 7
+    region = torch.from_numpy(shifted_window_regions(side, side)).to(card) if masked else None
+    shift = 3 if masked else 0
+    rowmask = dev(pad_rowmask(side - 2, side - 1, side, side, shift)) if padded else None
+    return (dev(rng.randn(3 * nw, 49, c)).to(dtype), rowmask,
+            dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
+            dev(rng.randn(3 * c, c) * c ** -0.5), dev(rng.randn(3 * c) * 0.05),
+            dev(rng.randn(heads, 49, 49) * 0.1).to(dtype), region,
+            dev(rng.randn(c, c) * c ** -0.5), dev(rng.randn(c) * 0.05),
+            dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
+            dev(rng.randn(4 * c, c) * c ** -0.5), dev(rng.randn(4 * c) * 0.05),
+            dev(rng.randn(c, 4 * c) * (4 * c) ** -0.5), dev(rng.randn(c) * 0.05))
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('heads,nw', [(3, 25), (24, 9)])
+@pytest.mark.parametrize('masked', [False, True])
+def test_attn_block_kernel_matches_plain(card, dtype, tol, heads, nw, masked):
+    p = _block_params(card, np.random.RandomState(2), heads * 32, heads, nw, dtype, masked, False)
+    args = (p[0], *p[4:10], heads)
+    before = attn_block.launches
+    got = attn_block(*args)
+    torch.cuda.synchronize()
+    assert attn_block.launches == before + 1
+    ref = attn_block_plain(*args)
+    assert got.dtype == dtype and got.shape == ref.shape == (3 * nw, 49, heads * 32)
+    _assert_close_rel(got, ref, tol)
+    with pytest.raises(ValueError, match='the kernel takes 49 tokens'):
+        attn_block(p[0][:, :, :64].contiguous(), p[4][:192, :64].contiguous(), p[5][:192],
+                   p[6][:2].contiguous(), None, p[8][:64, :64].contiguous(), p[9][:64], 2)
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('heads,nw', [(3, 25), (6, 4), (12, 4), (24, 9)])
+@pytest.mark.parametrize('masked,padded', [(False, False), (True, True), (False, True)])
+def test_swin_block_kernel_matches_plain(card, dtype, tol, heads, nw, masked, padded):
+    p = _block_params(card, np.random.RandomState(3), heads * 32, heads, nw, dtype, masked, padded)
+    before = swin_block.launches
+    got = swin_block(*p, heads)
+    torch.cuda.synchronize()
+    assert swin_block.launches == before + 1
+    ref = swin_block_plain(*p, heads)
+    assert got.dtype == dtype and got.shape == ref.shape == (3 * nw, 49, heads * 32)
+    _assert_close_rel(got, ref, tol)
+    if padded:      # the rowmask matters on these inputs
+        assert (swin_block_plain(p[0], None, *p[2:], heads).float() - ref.float()).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0]),
+                                           ('attn_block', [1, 1, 0, 12, 12, 0]),
+                                           ('whole', [1, 1, 0, 0, 0, 12]),
+                                           (('whole', 'whole', 'composed', 'composed'),
+                                            [1, 1, 8, 8, 0, 4])])
+def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected):
     from yolact_minimal_torch.pipeline import Detector
     det = Detector(get_config('swin_tiny_coco', img_size=128, nms_score_thre=0.002))
+    det.model.backbone.set_block_forms(form)
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(0))
-    counters = (suppression_iou_max, mask_finalize, window_attention, mlp_block)
+    counters = (suppression_iou_max, mask_finalize, window_attention, mlp_block, attn_block,
+                swin_block)
     before = [f.launches for f in counters]
     dets, masks = det.detect_fixed(images, 128)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 12, 12]
+    assert [f.launches - n for f, n in zip(counters, before)] == expected
     assert masks.shape == (2, 100, 128, 128) and bool(dets.valid.all())

@@ -21,7 +21,7 @@ PORT_MODULES = sorted(
 
 def test_port_imports_no_jax():
     for module in ('ops.mask_finalize', 'ops.window_attention', 'ops.swin_mlp',
-                   'models.swin'):
+                   'ops.attn_block', 'ops.swin_block', 'models.swin'):
         assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'
@@ -66,8 +66,8 @@ def test_kernels_raise_on_a_device_they_do_not_take():
 
 def test_every_kernel_source_names_what_it_replaces():
     sources = sorted((ROOT / 'yolact_minimal_torch' / 'csrc').glob('*.cu'))
-    assert [p.stem for p in sources] == ['mask_finalize', 'suppression', 'swin_mlp',
-                                         'window_attention']
+    assert [p.stem for p in sources] == ['attn_block', 'mask_finalize', 'suppression',
+                                         'swin_block', 'swin_mlp', 'window_attention']
     for path in sources:
         text = path.read_text()
         assert 'Replaces the Pallas TPU kernel yolact_minimal_tpu/ops/' in text, path.name
@@ -84,8 +84,14 @@ def test_kernel_build_names_libraries_by_source_and_needs_nvcc(tmp_path, monkeyp
     (tmp_path / 'k.cu').write_text('// one\n')
     first = _build._target('k')
     (tmp_path / 'k.cu').write_text('// two\n')
-    assert _build._target('k') != first            # an edited source rebuilds
+    second = _build._target('k')
+    assert second != first                         # an edited source rebuilds
     assert first.parent == tmp_path / 'build'
+    (tmp_path / 'shared.cuh').write_text('// a header\n')
+    third = _build._target('k')
+    assert third != second                         # and so does a new or edited header
+    (tmp_path / 'shared.cuh').write_text('// a header, edited\n')
+    assert _build._target('k') not in (second, third)
     monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
     monkeypatch.setattr(_build.os.path, 'exists', lambda path: False)
     with pytest.raises(RuntimeError, match='nvcc not found'):

@@ -1,6 +1,7 @@
 """The port's swin_tiny detect path against the JAX package: the static tables,
 the weight bridge, SwinTiny's four outputs at a size where every pad happens,
-and swin_tiny_coco through Yolact and Detector.detect_fixed."""
+and swin_tiny_coco through Yolact and Detector.detect_fixed, in each of the
+three block forms ('composed', 'attn_block', 'whole')."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +58,51 @@ def test_static_tables_equal_jax(hp, wp):
     np.testing.assert_array_equal(swin.window_reverse(win, 7, hp, wp).numpy(), x)
 
 
+@pytest.mark.parametrize('shift', [0, 3])
+@pytest.mark.parametrize('h,hp', [(136, 140), (68, 70), (34, 35), (17, 21), (14, 14)])
+def test_pad_rowmask_equals_jax(h, hp, shift):
+    w, wp = (9, 14) if h == 17 else (h, hp)             # once with a map that is not square
+    ours, ref = swin.pad_rowmask(h, w, hp, wp, shift), jax_swin.pad_rowmask(h, w, hp, wp, shift)
+    if h == hp:
+        assert ours is None and ref is None             # no padding: the kernel takes None
+        return
+    assert ours.dtype == ref.dtype == np.float32 and ours.shape == ((hp // 7) * (wp // 7), 49)
+    np.testing.assert_array_equal(ours, ref)
+    assert ours.sum() == h * w
+    on_device = swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'))
+    assert on_device is swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'))   # cached
+    np.testing.assert_array_equal(on_device.numpy(), ref)
+
+
+# The JAX package's flags for each of the port's fused forms.
+JAX_FLAGS = {'attn_block': dict(fused_attn_block=True, fused_mlp=True),
+             'whole': dict(fused_whole=True)}
+
+
+@pytest.mark.parametrize('form', ['attn_block', 'whole'])
+def test_stage_forms_match_jax(form):
+    """Two blocks (unshifted, shifted) on a 30x26 map that pads to 35x28,
+    against the JAX stage run with the same flags on the same variables."""
+    dim, heads = 96, 3
+    x = np.random.RandomState(9).normal(size=(2, 30, 26, dim)).astype(np.float32)
+    kw = dict(dim=dim, depth=2, num_heads=heads, drop_path_rates=(0.0, 0.0), downsample=True)
+    v = _perturb(jax.jit(jax_swin.SwinStage(**kw).init)(jax.random.PRNGKey(2), x), 10)
+    ref_out, ref_down = jax_swin.SwinStage(**kw, **JAX_FLAGS[form]).apply(v, x)
+    sd = {k.removeprefix('layers.0.'): t
+          for k, t in swin_from_jax_params({'stage0': v['params']}, prefix='').items()}
+    flags = {f: True for f in JAX_FLAGS[form] if f != 'fused_mlp'}
+    stage = swin.SwinStage(dim, 2, heads, downsample=True, **flags)
+    stage.load_state_dict(sd, strict=True)
+    assert [getattr(b, f) for b in stage.blocks for f in flags] == [True, True]
+    assert [b.shift for b in stage.blocks] == [0, 3]
+    with torch.no_grad():
+        out, down = stage.eval()(torch.from_numpy(x))
+    for name, o, r in (('blocks', out, ref_out), ('merged', down, ref_down)):
+        assert o.shape == r.shape, name
+        err = _rel_err(o.numpy(), np.asarray(r))
+        assert err < REL_TOL, f'{name}: relative error {err}'
+
+
 # 72 px: 18 -> pad 21; merge to 9 -> pad 14; 9 is odd: merge pads to 10 -> 5
 # -> pad 7; merge pads to 6 -> 3 -> pad 7. Narrow, head width 32.
 SMALL = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
@@ -84,6 +130,38 @@ def test_swin_tiny_outputs_match_jax(small_swin, fused):
         assert o.shape == r.shape == (2, hw, hw, c), i
         err = _rel_err(o.numpy(), np.asarray(r))
         assert err < REL_TOL, f'output {i}: relative error {err}'
+
+
+@pytest.mark.parametrize('forms', ['attn_block', 'whole',
+                                   ('whole', 'attn_block', 'composed', 'whole')])
+def test_swin_tiny_forms_match_jax_and_composed(small_swin, forms):
+    x, v = small_swin
+    ref = jax.jit(jax_swin.SwinTiny(**SMALL, fused_attn=True).apply)(v, x)
+    sd = swin_from_jax_params(v['params'], prefix='')
+    model = swin.SwinTiny(**SMALL, block_forms=forms)
+    composed = swin.SwinTiny(**SMALL)
+    assert list(model.state_dict()) == list(composed.state_dict())
+    model.load_state_dict(sd, strict=True)
+    composed.load_state_dict(sd, strict=True)
+    per_stage = [forms] * 4 if isinstance(forms, str) else list(forms)
+    for stage, form in zip(model.layers, per_stage):
+        assert all((b.fused_attn_block, b.fused_whole) ==
+                   (form == 'attn_block', form == 'whole') for b in stage.blocks)
+    with torch.no_grad():
+        ours = model.eval()(torch.from_numpy(x))
+        base = composed.eval()(torch.from_numpy(x))
+        composed.set_block_forms(forms)                 # the same instance, switched
+        switched = composed(torch.from_numpy(x))
+    for i, (o, r, b, s) in enumerate(zip(ours, ref, base, switched)):
+        assert o.shape == r.shape, i
+        assert torch.equal(o, s), i
+        for what, other in (('JAX', np.asarray(r)), ('composed', b.numpy())):
+            err = _rel_err(o.numpy(), other)
+            # on the CPU 'attn_block' runs the composed form's very operations
+            assert err < REL_TOL, f'output {i} against {what}: relative error {err}'
+    for bad in ('fused', ('whole', 'whole'), ('whole', 'attn_block', 'composed', 'mlp')):
+        with pytest.raises(ValueError, match='block forms must be'):
+            model.set_block_forms(bad)
 
 
 def test_derived_tensors_follow_their_parameters(small_swin):
@@ -151,6 +229,34 @@ def test_bridge_covers_every_parameter(jax_variables, tmp_path):
     assert det.cfg.backbone == 'swin_tiny'
 
 
+@pytest.fixture(scope='module')
+def jax_forward(jax_variables):
+    """The JAX package's swin_tiny_coco forward (Pallas kernels in interpret
+    mode) on one seeded batch."""
+    img = np.random.RandomState(6).normal(size=(2, IMG, IMG, 3)).astype(np.float32)
+    jm = JaxYolact(cfg=jax_config('swin_tiny_coco', fused_window_attn='on', **CFG))
+    return img, jax.jit(lambda v, x: jm.apply(v, x, train=False))(jax_variables, img)
+
+
+@pytest.mark.parametrize('form', ['attn_block', 'whole'])
+def test_yolact_forward_forms_match_jax_and_composed(jax_variables, jax_forward, form):
+    img, ref = jax_forward
+    sd = from_jax_variables(jax_variables)
+    model = Yolact(get_config('swin_tiny_coco', **CFG))
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        base = model.eval()(torch.from_numpy(img))
+        model.backbone.set_block_forms(form)
+        assert set(sd) == set(model.state_dict())       # nothing new for the bridge to map
+        ours = model(torch.from_numpy(img))
+    for name, r, o, b in zip(NAMES, ref, ours, base):
+        assert o.shape == r.shape and o.dtype == torch.float32, name
+        for what, other in (('JAX', np.asarray(r)), ('composed', b.numpy())):
+            err = _rel_err(o.numpy(), other)
+            assert err < REL_TOL, f'{name} against {what}: relative error {err}'
+
+
 @pytest.mark.parametrize('fused', ['off', 'on'])
 def test_yolact_forward_matches_jax(jax_variables, fused):
     img = np.random.RandomState(6).normal(size=(2, IMG, IMG, 3)).astype(np.float32)
@@ -193,13 +299,22 @@ def test_yolact_bf16_forward_matches_jax(jax_init):
         assert _rel_err(o.numpy(), f.numpy()) > 0, f'{name}: the network did not run in bf16'
 
 
-def test_detect_fixed_matches_jax(jax_variables):
+@pytest.fixture(scope='module')
+def jax_slate(jax_variables):
     images = np.random.RandomState(8).normal(size=(2, IMG, IMG, 3)).astype(np.float32)
     jdet = JaxDetector(jax_config('swin_tiny_coco', fused_window_attn='on', **CFG),
                        jax_variables, static_weights=False)
+    return images, jdet.detect_fixed(jnp.asarray(images), IMG)
+
+
+@pytest.mark.parametrize('form', ['composed', 'attn_block', 'whole'])
+def test_detect_fixed_matches_jax(jax_variables, jax_slate, form):
+    images, (ref, ref_masks) = jax_slate
     det = Detector(get_config('swin_tiny_coco', **CFG), from_jax_variables(jax_variables),
                    device='cpu')
-    ref, ref_masks = jdet.detect_fixed(jnp.asarray(images), IMG)
+    assert not any(b.fused_attn_block or b.fused_whole
+                   for stage in det.model.backbone.layers for b in stage.blocks)
+    det.model.backbone.set_block_forms(form)
     ours, masks = det.detect_fixed(images, IMG)
     assert ours.valid.sum() > 10
     np.testing.assert_array_equal(ours.valid.numpy(), np.asarray(ref.valid))

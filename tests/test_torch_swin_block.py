@@ -1,0 +1,147 @@
+"""The port's whole-SwinBlock op (plain version, which the wrapper runs for
+CPU tensors) against the JAX package: the Pallas kernel in interpret mode and
+its XLA oracle, with and without window padding, shifted and unshifted."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolact_minimal_tpu.models import swin as jax_swin
+from yolact_minimal_tpu.ops.swin_block import _block_xla, swin_block_fused
+from yolact_minimal_torch.ops.attn_block import attn_block_plain
+from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
+from yolact_minimal_torch.ops.swin_mlp import mlp_block_plain
+
+torch.set_num_threads(1)
+
+N = 49
+# float32, outputs of O(1): LayerNorm, four products of up to 384 terms and
+# erf (against the JAX kernel's 1.5e-7 rational form), summed in another order.
+F32_TOL = 2e-5
+# bf16: the rounding places are the same, but a float32 sum that rounds to the
+# other bf16 neighbour in the first half (qkv, p, the attention output, LN2's
+# input row) is passed on through LayerNorm2 and two more products, so more
+# than the last rounding differs: two bf16 ulps (2^-6) of the output's largest
+# magnitude, with nearly all entries equal to the bit.
+BF16_REL_TOL = 2.0 ** -6
+# (map h, w, C, heads): 30x26 pads to 35x28, so boundary windows mix real
+# and padding tokens; 28x28 and 14x14 need no padding (rowmask None)
+GEOMETRIES = [(30, 26, 96, 3), (28, 28, 96, 3), (14, 14, 192, 6)]
+
+
+def _inputs(h, w, c, heads, shift, seed=0):
+    """JAX layout: x (windowed pre-norm rows of a [2, h, w, C] map), rowmask,
+    ln1 scale/bias, wqkv [C, 3C], bqkv, bias, region, wproj, bproj, ln2
+    scale/bias, k1 [C, 4C], b1, k2 [4C, C], b2."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: a.astype(np.float32)
+    hp, wp = -(-h // 7) * 7, -(-w // 7) * 7
+    x = np.pad(f32(rng.randn(2, h, w, c)), ((0, 0), (0, hp - h), (0, wp - w), (0, 0)))
+    if shift:
+        x = np.roll(x, (-shift, -shift), axis=(1, 2))
+    x = np.asarray(jax_swin.window_partition(jnp.asarray(x), 7))
+    rowmask = jax_swin.pad_rowmask(h, w, hp, wp, shift)
+    region = jax_swin.shifted_window_regions(hp, wp).astype(np.int32) if shift else None
+    return (x, rowmask, f32(rng.randn(c) * 0.1 + 1.0), f32(rng.randn(c) * 0.1),
+            f32(rng.randn(c, 3 * c) * 0.05), f32(rng.randn(3 * c) * 0.05),
+            f32(rng.randn(heads, N, N) * 0.1), region,
+            f32(rng.randn(c, c) * 0.05), f32(rng.randn(c) * 0.05),
+            f32(rng.randn(c) * 0.1 + 1.0), f32(rng.randn(c) * 0.1),
+            f32(rng.randn(c, 4 * c) * 0.05), f32(rng.randn(4 * c) * 0.05),
+            f32(rng.randn(4 * c, c) * 0.05), f32(rng.randn(c) * 0.05))
+
+
+WEIGHTS = (4, 8, 12, 14)          # positions of wqkv, wproj, k1, k2
+
+
+def _ours(args, dtype=torch.float32):
+    """The port takes nn.Linear's [out, in] layout; x and the
+    relative-position bias in the compute dtype."""
+    out = [None if a is None else torch.from_numpy(np.array(a)) for a in args]
+    for i in WEIGHTS:
+        out[i] = out[i].T.contiguous()
+    out[0], out[6] = out[0].to(dtype), out[6].to(dtype)
+    return tuple(out)
+
+
+def _jax(args, dtype=jnp.float32):
+    out = [None if a is None else jnp.asarray(a) for a in args]
+    out[0], out[6] = out[0].astype(dtype), out[6].astype(dtype)
+    return tuple(out)
+
+
+@pytest.mark.parametrize('h,w,c,heads', GEOMETRIES)
+@pytest.mark.parametrize('shift', [0, 3])
+def test_plain_matches_jax_float32(h, w, c, heads, shift):
+    args = _inputs(h, w, c, heads, shift)
+    assert (args[1] is None) == (h % 7 == 0 and w % 7 == 0)
+    ours = swin_block_plain(*_ours(args), heads).numpy()
+    assert ours.shape == args[0].shape and np.abs(ours - args[0]).max() > 0.1
+    for ref in (swin_block_fused(*_jax(args), heads), _block_xla(*_jax(args), heads)):
+        np.testing.assert_allclose(ours, np.asarray(ref), rtol=0, atol=F32_TOL)
+    if args[1] is not None:      # the rowmask matters on these inputs
+        free = swin_block_plain(*_ours((args[0], None) + args[2:]), heads).numpy()
+        assert np.abs(free - ours).max() > 1e-3
+
+
+@pytest.mark.parametrize('shift', [0, 3])
+def test_plain_matches_jax_bfloat16(shift):
+    h, w, c, heads = 30, 26, 96, 3
+    args = _inputs(h, w, c, heads, shift, seed=1)
+    ours = swin_block_plain(*_ours(args, torch.bfloat16), heads)
+    assert ours.dtype == torch.bfloat16
+    # weights already in bf16 (what models/swin.py hands over) change nothing
+    cast = list(_ours(args, torch.bfloat16))
+    for i in WEIGHTS:
+        cast[i] = cast[i].bfloat16()
+    assert torch.equal(ours, swin_block_plain(*cast, heads))
+    ours = ours.float().numpy()
+    for ref in (swin_block_fused(*_jax(args, jnp.bfloat16), heads),
+                _block_xla(*_jax(args, jnp.bfloat16), heads)):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert np.abs(ours - ref).max() <= BF16_REL_TOL * np.abs(ref).max()
+        assert (ours == ref).mean() > 0.9
+
+
+def test_plain_is_not_the_composition_of_the_half_blocks():
+    """In bf16 the whole block keeps h in float32 between its halves and
+    rounds the hidden activations once; composing the two half-block ops
+    rounds h and rounds before the gelu too. Close, but not equal. In float32
+    the two are the same function up to summation order."""
+    h, w, c, heads = 28, 28, 96, 3
+    for dtype, low, high in ((torch.bfloat16, 0.0, 2.0 ** -5), (torch.float32, -1.0, 1e-5)):
+        (x, rowmask, l1s, l1b, wqkv, bqkv, bias, region, wproj, bproj, l2s, l2b, k1, b1, k2,
+         b2) = _ours(_inputs(h, w, c, heads, 3, seed=2), dtype)
+        whole = swin_block_plain(x, rowmask, l1s, l1b, wqkv, bqkv, bias, region, wproj, bproj,
+                                 l2s, l2b, k1, b1, k2, b2, heads).float()
+        xn = torch.nn.functional.layer_norm(x.float(), (c,), l1s, l1b, 1e-5).to(dtype)
+        half = (x.float() + attn_block_plain(xn, wqkv, bqkv, bias, region, wproj, bproj,
+                                             heads).float()).to(dtype)
+        composed = mlp_block_plain(half.reshape(-1, c), l2s, l2b, k1, b1, k2, b2)
+        diff = (whole - composed.reshape(whole.shape).float()).abs().max() / whole.abs().max()
+        assert low < diff.item() < high, (dtype, diff.item())
+
+
+def test_wrapper_runs_plain_on_cpu_and_checks_its_inputs():
+    heads = 3
+    args = _ours(_inputs(30, 26, 96, heads, 3))
+    before = swin_block.launches
+    assert torch.equal(swin_block(*args, heads), swin_block_plain(*args, heads))
+    assert swin_block.launches == before                # no kernel on the CPU
+
+    def swapped(i, t):
+        return args[:i] + (t,) + args[i + 1:]
+    with pytest.raises(ValueError, match='windows'):
+        swin_block(*swapped(0, args[0][0]), heads)
+    with pytest.raises(ValueError, match='rowmask must be'):
+        swin_block(*swapped(1, args[1].double()), heads)
+    with pytest.raises(ValueError, match='rowmask has 4 windows an image, region 20'):
+        swin_block(*swapped(1, args[1][:4].contiguous()), heads)
+    with pytest.raises(ValueError, match='k1 must be'):
+        swin_block(*swapped(12, args[12].T.contiguous()), heads)
+    with pytest.raises(ValueError, match='ln2_bias must be'):
+        swin_block(*swapped(11, args[11].bfloat16()), heads)
+    with pytest.raises(ValueError, match='bias must be'):
+        swin_block(*swapped(6, args[6].bfloat16()), heads)
+    with pytest.raises(ValueError, match='unsupported device'):
+        swin_block(*(None if t is None else t.to('meta') for t in args), heads)

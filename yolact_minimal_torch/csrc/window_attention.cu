@@ -25,32 +25,17 @@
 // softmax runs in that thread's registers, and p v reads v rows as
 // broadcasts. The products run on the CUDA cores in both instantiations;
 // tensor cores (49 padded to 64) are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "swin_common.cuh"
 
 namespace {
 
-constexpr int N = 49;        // tokens per 7x7 window
-constexpr int HD = 32;       // head width
-constexpr int THREADS = 64;
-constexpr float NEG = -100.0f;
+using swin::HD;
+using swin::N;
+using swin::from_f;
+using swin::round_to;
+using swin::to_f;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// A float32 value rounded to T's grid.
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
-}
+constexpr int THREADS = 64;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -68,7 +53,7 @@ window_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   const int w = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int c = heads * HD;
   const T* base = qkv + static_cast<size_t>(w) * N * 3 * c + h * HD;
-  const float scale = round_to<T>(0.17677669529663687f);    // 32^-0.5
+  const float scale = round_to<T>(swin::QK_SCALE);
 
   for (int e = tid; e < N * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
@@ -83,57 +68,10 @@ window_attention_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   if (masked && tid < N) sreg[tid] = region[static_cast<size_t>(w % nw) * N + tid];
   __syncthreads();
 
-  if (tid < N) {
-    float q[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = sq[tid][d];
-    float* s = ss + tid * N;
-    const int my_region = masked ? sreg[tid] : 0;
-
-    float row_max = -INFINITY;
-#pragma unroll 7
-    for (int j = 0; j < N; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&sk[j][d]);
-        acc += q[d] * kk.x;
-        acc += q[d + 1] * kk.y;
-        acc += q[d + 2] * kk.z;
-        acc += q[d + 3] * kk.w;
-      }
-      acc += s[j];
-      if (masked) acc += (sreg[j] != my_region) ? NEG : 0.0f;
-      s[j] = acc;
-      row_max = fmaxf(row_max, acc);
-    }
-    float sum = 0.0f;
-#pragma unroll 7
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(s[j] - row_max);
-      s[j] = e;
-      sum += e;
-    }
-
-    float o[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = 0.0f;
-#pragma unroll 7
-    for (int j = 0; j < N; ++j) {
-      const float p = round_to<T>(s[j] / sum);
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sv[j][d]);
-        o[d] += p * vv.x;
-        o[d + 1] += p * vv.y;
-        o[d + 2] += p * vv.z;
-        o[d + 3] += p * vv.w;
-      }
-    }
-    // Row tid of sq was read by this thread alone: reuse it as staging.
-#pragma unroll
-    for (int d = 0; d < HD; ++d) sq[tid][d] = o[d];
-  }
+  // Thread i < 49 owns query row i; its result replaces its row of sq.
+  if (tid < N)
+    swin::attention_row<T>(sq[tid], &sk[0][0], &sv[0][0], ss + tid * N,
+                           masked ? sreg : nullptr, tid);
   __syncthreads();
 
   T* obase = out + static_cast<size_t>(w) * N * c + h * HD;
@@ -156,9 +94,9 @@ extern "C" int window_attention(const void* qkv, const void* bias,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* reg = static_cast<const int*>(region);
   if (is_bf16) {
-    window_attention_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(bias),
-        reg, static_cast<__nv_bfloat16*>(out), heads, nw);
+    window_attention_kernel<swin::bf16><<<grid, THREADS, 0, s>>>(
+        static_cast<const swin::bf16*>(qkv), static_cast<const swin::bf16*>(bias),
+        reg, static_cast<swin::bf16*>(out), heads, nw);
   } else {
     window_attention_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(bias), reg,

@@ -9,10 +9,20 @@ state_dict (`patch_embed.proj`, `layers.{s}.blocks.{b}.attn.qkv`,
 `layers.{s}.downsample.reduction`, `norm{1,2,3}`), so a strict
 `load_state_dict` takes published key names.
 
-Every block runs two hand-written kernels: `ops/window_attention.py` between
-the qkv and proj Linears, and `ops/swin_mlp.py` for the whole MLP half. The
-window padding sizes, the shifted-window region ids and the relative-position
-index are data-independent numpy tables.
+Every block runs hand-written kernels, in one of three forms (`FORMS`) that
+compute the same function from the same parameters:
+- 'composed' (the default): `ops/window_attention.py` between the qkv and
+  proj Linears, and `ops/swin_mlp.py` for the whole MLP half;
+- 'attn_block': `ops/attn_block.py` for qkv, attention and proj in one
+  kernel, then `ops/swin_mlp.py`;
+- 'whole': `ops/swin_block.py` for the whole block, norm1 to the second
+  residual, on the windowed pre-norm rows.
+`SwinTiny` takes the form per stage and `set_block_forms` switches an
+instance. In bfloat16 the forms round at different places ('whole' keeps the
+residual between the halves in float32, the others round it); in float32 they
+differ by summation order only. The window padding sizes, the shifted-window
+region ids, the padding rowmask and the relative-position index are
+data-independent numpy tables.
 
 `dtype` is the compute dtype: parameters stay float32, and each Linear keeps
 a copy cast once; LayerNorm runs in float32 and rounds its result, as flax's
@@ -22,17 +32,20 @@ ported yet.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolact_minimal_torch.ops.attn_block import attn_block
+from yolact_minimal_torch.ops.swin_block import swin_block
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
 from yolact_minimal_torch.ops.window_attention import window_attention
 
 WINDOW = 7
+FORMS = ('composed', 'attn_block', 'whole')
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +79,30 @@ def shifted_window_regions(hp: int, wp: int, window: int = WINDOW,
 @functools.lru_cache(maxsize=None)
 def _regions_on(hp: int, wp: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(shifted_window_regions(hp, wp))).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def pad_rowmask(h: int, w: int, hp: int, wp: int, shift: int,
+                window: int = WINDOW) -> Optional[np.ndarray]:
+    """Static [nW, N] float32 1/0 validity of each windowed row after padding
+    (h, w) -> (hp, wp) and rolling by -shift: 0 marks a padding token. None
+    when no padding is needed. The whole-block kernel zeroes its LayerNorm1
+    output on padding rows, which is what padding after norm1 does."""
+    if hp == h and wp == w:
+        return None
+    m = np.zeros((hp, wp), np.float32)
+    m[:h, :w] = 1.0
+    if shift:
+        m = np.roll(m, (-shift, -shift), axis=(0, 1))
+    m = m.reshape(hp // window, window, wp // window, window)
+    return m.transpose(0, 2, 1, 3).reshape(-1, window * window)
+
+
+@functools.lru_cache(maxsize=None)
+def _rowmask_on(h: int, w: int, hp: int, wp: int, shift: int,
+                device: torch.device) -> Optional[torch.Tensor]:
+    m = pad_rowmask(h, w, hp, wp, shift)
+    return None if m is None else torch.from_numpy(np.ascontiguousarray(m)).to(device)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -153,7 +190,11 @@ class WindowAttention(nn.Module):
             return b.reshape(n, n, -1).permute(2, 0, 1).to(self.dtype).contiguous()
         return self._bias.get((table,), make)
 
-    def forward(self, x, region):
+    def forward(self, x, region, fused_block: bool = False):
+        """`fused_block`: qkv, attention and proj as one kernel."""
+        if fused_block:
+            return attn_block(x.contiguous(), self.qkv.cast()[0], self.qkv.bias, self.bias(),
+                              region, self.proj.cast()[0], self.proj.bias, self.num_heads)
         out = window_attention(self.qkv(x).contiguous(), self.bias(), region, self.num_heads)
         return self.proj(out)
 
@@ -171,22 +212,26 @@ class Mlp(nn.Module):
 class SwinBlock(nn.Module):
     """W-MSA / SW-MSA block on [B, H, W, C]. The input is padded bottom/right
     to a multiple of the window with zeros AFTER norm1, and the regions are
-    those of the padded size."""
+    those of the padded size. `fused_attn_block` and `fused_whole` pick the
+    form (module docstring); the parameters are the same in all three."""
 
     def __init__(self, dim: int, num_heads: int, shift: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
+                 fused_whole: bool = False):
         super().__init__()
         self.shift = shift
         self.dtype = dtype
+        self.fused_attn_block = fused_attn_block
+        self.fused_whole = fused_whole
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, dim * 4, dtype)
 
-    def forward(self, x):
-        b, h, w, c = x.shape
-        shortcut = x
-        x = _layer_norm(x, self.norm1, self.dtype)
+    def _to_windows(self, x):
+        """Pad to a multiple of the window, roll by the shift, partition.
+        Returns the windows, the padded size and the region ids (or None)."""
+        _, h, w, _ = x.shape
         pad_b = (WINDOW - h % WINDOW) % WINDOW
         pad_r = (WINDOW - w % WINDOW) % WINDOW
         if pad_b or pad_r:
@@ -196,18 +241,41 @@ class SwinBlock(nn.Module):
         if self.shift > 0:
             x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
             region = _regions_on(hp, wp, x.device)
+        return window_partition(x, WINDOW), hp, wp, region
 
-        attended = self.attn(window_partition(x, WINDOW), region)
-        x = window_reverse(attended, WINDOW, hp, wp)
+    def _from_windows(self, windows, hp, wp, h, w):
+        x = window_reverse(windows, WINDOW, hp, wp)
         if self.shift > 0:
             x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
-        if pad_b or pad_r:
-            x = x[:, :h, :w, :]
+        return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        if self.fused_whole:
+            return self._whole(x)
+        shortcut = x
+        x = _layer_norm(x, self.norm1, self.dtype)
+        windows, hp, wp, region = self._to_windows(x)
+        attended = self.attn(windows, region, fused_block=self.fused_attn_block)
+        x = self._from_windows(attended, hp, wp, h, w)
         x = (shortcut + x).reshape(-1, c)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         y = mlp_block(x, self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
                       fc2.cast()[0], fc2.bias)
         return y.reshape(b, h, w, c)
+
+    def _whole(self, x):
+        """Both halves as one kernel on the windowed PRE-norm rows; the
+        rowmask tells it which rows the padding added."""
+        _, h, w, _ = x.shape
+        windows, hp, wp, region = self._to_windows(x.to(self.dtype))
+        attn, fc1, fc2 = self.attn, self.mlp.fc1, self.mlp.fc2
+        y = swin_block(windows.contiguous(), _rowmask_on(h, w, hp, wp, self.shift, x.device),
+                       self.norm1.weight, self.norm1.bias, attn.qkv.cast()[0], attn.qkv.bias,
+                       attn.bias(), region, attn.proj.cast()[0], attn.proj.bias,
+                       self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
+                       fc2.cast()[0], fc2.bias, attn.num_heads)
+        return self._from_windows(y, hp, wp, h, w)
 
 
 class PatchMerging(nn.Module):
@@ -235,10 +303,12 @@ class SwinStage(nn.Module):
     patch merging; returns (the blocks' output, the next stage's input)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
+                 fused_whole: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype)
+            SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype,
+                      fused_attn_block=fused_attn_block, fused_whole=fused_whole)
             for i in range(depth))
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
@@ -258,11 +328,13 @@ class PatchEmbed(nn.Module):
 class SwinTiny(nn.Module):
     """`forward(x [B, H, W, 3])` returns 4 [B, h, w, C] feature maps (96,
     192, 384, 768 channels at strides 4/8/16/32) in the compute dtype;
-    outputs 1-3 are LayerNormed."""
+    outputs 1-3 are LayerNormed. `block_forms` is one of `FORMS` for every
+    stage, or one per stage."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 block_forms: Union[str, Sequence[str]] = 'composed'):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(embed_dim)
@@ -272,6 +344,19 @@ class SwinTiny(nn.Module):
             for i, depth in enumerate(depths))
         for i in (1, 2, 3):
             setattr(self, f'norm{i}', nn.LayerNorm(embed_dim * 2 ** i, eps=LN_EPS))
+        self.set_block_forms(block_forms)
+
+    def set_block_forms(self, forms: Union[str, Sequence[str]]) -> None:
+        """Switch every block of stage i to `forms[i]` (or all to `forms`);
+        the parameters stay as they are."""
+        forms = [forms] * len(self.layers) if isinstance(forms, str) else list(forms)
+        if len(forms) != len(self.layers) or any(f not in FORMS for f in forms):
+            raise ValueError(f'block forms must be one of {FORMS}, or one per stage for '
+                             f'{len(self.layers)} stages, got {forms}')
+        for stage, form in zip(self.layers, forms):
+            for block in stage.blocks:
+                block.fused_attn_block = form == 'attn_block'
+                block.fused_whole = form == 'whole'
 
     def forward(self, x) -> Tuple[torch.Tensor, ...]:
         h, w = x.shape[1:3]

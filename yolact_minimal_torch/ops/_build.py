@@ -3,8 +3,9 @@
 Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
 plain C interface and loaded with `ctypes`; no PyTorch headers are involved,
 so a build takes seconds. Libraries land in `build/torch_kernels/` at the
-repository root, named by a hash of the source and the flags, so an edited
-source is rebuilt at its next use and an unchanged one is reused.
+repository root, named by a hash of the source, the headers beside it
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt at its
+next use and an unchanged one is reused.
 
 Every kernel entry point returns the `cudaError_t` of its launch; `launch`
 raises when it is not 0 (a refused launch never runs, and a later
@@ -37,8 +38,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers too: a source that includes an edited header is rebuilt
+    parts = [(CSRC / f'{name}.cu').read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob('*.cuh'))]
+    digest = hashlib.sha256(b'\0'.join(parts) + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}_{digest}.so'
 
 
