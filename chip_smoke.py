@@ -13,7 +13,9 @@ Phases, in order; any failure exits nonzero:
      four swin kernels at each of the four stage shapes, in bf16 and float32,
      shifted and unshifted (the whole-block kernel with the padded map's
      rowmask and once without), the two block kernels beside the times of
-     what they replace;
+     what they replace, the MLP kernel beside a composition of PyTorch calls,
+     with its launch geometry and a check that two launches agree bit for
+     bit;
   4. a main path at full width: res50_coco at 544, batch 16, seeded random
      weights, bf16: Detector.detect_fixed for a few batches (img/s, host
      clock, untraced), then Detector.__call__ + postprocess_host on two
@@ -31,8 +33,9 @@ Phases, in order; any failure exits nonzero:
      on one seeded Detector switched between its block forms: 'composed'
      (window attention and the MLP half-block, 12 launches each a forward),
      'attn_block' (the attention half-block kernel and the MLP half-block, 12
-     each), 'whole' (the whole-block kernel, 12) and 'mixed' (whole at stages
-     0-1, composed at stages 2-3); each path must launch its forms' kernels
+     each), 'whole' (the whole-block kernel, 12) and 'mixed' (whole at stage
+     0, attn_block at stage 1, composed at stages 2-3); each path must launch
+     its forms' kernels
      and no other swin kernel, and its float32 network outputs are
      also held to the composed form's on the card. Then each swin stage's
      blocks alone in each form, timed with CUDA events.
@@ -100,9 +103,11 @@ SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
                       'whole': ('swin_block',)}
 # The swin main paths: the form of each stage's blocks. 'mixed' takes for each
 # stage the form that the stage table (phase_stage_forms) found fastest on an
-# H100 at 700 W: the whole-block kernel at stages 0-1, the composed form after.
+# H100 at 700 W with the wgmma MLP kernel: the whole-block kernel at stage 0,
+# the attention half-block kernel at stage 1, the composed form after.
 SWIN_PATHS = {'composed': ('composed',) * 4, 'attn_block': ('attn_block',) * 4,
-              'whole': ('whole',) * 4, 'mixed': ('whole', 'whole', 'composed', 'composed')}
+              'whole': ('whole',) * 4,
+              'mixed': ('whole', 'attn_block', 'composed', 'composed')}
 # Float32 network outputs of two block forms on the card: the same function
 # up to summation order, each output within 1e-4 of its largest magnitude.
 FORM_REL_TOL = 1e-4
@@ -112,7 +117,7 @@ GROUPS = (
     ('suppression kernel', r'suppression_kernel'),
     ('mask_finalize kernel', r'mask_finalize_kernel'),
     ('window_attention kernel', r'window_attention_kernel'),
-    ('swin_mlp kernel', r'mlp_bf16_kernel|mlp_f32_kernel'),
+    ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel'),
     ('attn_block kernel', r'attn_block_bf16_kernel|attn_block_f32_kernel'),
     ('swin_block kernel', r'swin_block_bf16_kernel|swin_block_f32_kernel'),
     ('layer norm', r'layer_norm|LayerNorm'),
@@ -370,12 +375,17 @@ def check_window_attention(dev):
 
 def check_swin_mlp(dev):
     """Kernel 4 at the four stage shapes of swin_tiny 544/b16 (row counts that
-    no tile divides), bf16 and float32, against the plain version; timed in
-    bf16, and once in float32 for the record."""
+    no tile divides), bf16 and float32, against the plain version; two bf16
+    launches on the same input must give the same bits. Timed in bf16, once
+    in float32 for the record, and beside the composition yardstick: bf16
+    F.layer_norm (float32 statistics) -> F.linear -> F.gelu -> F.linear -> + x,
+    which the port never calls. Prints the bf16 launch geometry."""
     import torch
-    from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
+    import torch.nn.functional as F
+    from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
     g = torch.Generator(device=dev).manual_seed(4)
     rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_stage = []
     for stage, (_, _, c, _, rows) in enumerate(SWIN_STAGES):
         x32 = rand(rows, c)
@@ -393,6 +403,10 @@ def check_swin_mlp(dev):
                    f'is {rel:.3g} of max |plain| (> {tol:.3g})')
             _check((ref.float() - x.float()).abs().max().item() > 0.1, 'the MLP term vanished')
             worst[dtype] = (err, rel)
+            if dtype == torch.bfloat16:
+                again = mlp_block(x, *params)
+                _check(torch.equal(got, again), f'swin_mlp stage {stage}: two launches differ')
+                del again
             del got, ref
         f32_ms = _time_ms(lambda: mlp_block(x32, *params), warmup=1, iters=3)
         x = x32.to(torch.bfloat16)
@@ -402,31 +416,54 @@ def check_swin_mlp(dev):
                 params[4].bfloat16(), params[5])
         ms = _time_ms(lambda: mlp_block(*args))
         plain_ms = _time_ms(lambda: mlp_block_plain(*args), warmup=1, iters=5)
+        bf = [t.bfloat16() for t in params]
+
+        def composition():
+            h = F.linear(F.layer_norm(x, (c,), bf[0], bf[1], 1e-5), bf[2], bf[3])
+            return x + F.linear(F.gelu(h), bf[4], bf[5])
+        _, comp_rel = _rel_err(composition(), mlp_block_plain(*args))
+        _check(comp_rel < 5e-2, f'the composition yardstick computes something else ({comp_rel})')
+        composition_ms = _time_ms(composition)
+        geo = kernel_geometry(c, rows)
+        geo['waves'] = geo['tiles'] / geo['blocks']
+        geo['rounds'] = -(-geo['tiles'] // geo['blocks'])
+        geo['sms'] = sms
         # bytes: x and all parameters read once, y written once; operations:
         # the two products (LayerNorm, gelu and the adds are a few per element)
         n_bytes = 2 * x.numel() * 2 + 2 * 4 * c * c * 2 + (2 * c + 4 * c + c) * 4
         bound, by = _bound_ms(n_bytes, 2 * rows * c * 4 * c * 2, BF16_PEAK)
         print(f'kernel swin_mlp stage {stage} x [{rows}, {c}] bf16: {ms:.4f} ms '
-              f'({2 * rows * c * 4 * c * 2 / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, '
-              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); |kernel - plain| '
-              f'/ max |plain|: bf16 {worst[torch.bfloat16][1]:.3g} (<= '
+              f'({2 * rows * c * 4 * c * 2 / ms / 1e9:.1f} TFLOP/s), composition yardstick {composition_ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); '
+              f'|kernel - plain| / max |plain|: bf16 {worst[torch.bfloat16][1]:.3g} (<= '
               f'{SWIN_BF16_REL_TOL:.3g}), float32 {worst[torch.float32][1]:.3g} (<= '
-              f'{SWIN_F32_REL_TOL:.3g})')
+              f'{SWIN_F32_REL_TOL:.3g}); two launches bit-equal')
+        print(f'  geometry: {geo["rows_per_tile"]} rows a tile, cluster {geo["cluster"]}, '
+              f'{geo["blocks"]} blocks of {geo["threads"]} threads for {geo["tiles"]} tiles on '
+              f'{sms} SMs ({geo["waves"]:.2f} tiles a block, {geo["rounds"]} rounds), '
+              f'{geo["stages"]} ring stages, {geo["smem_bytes"]} B shared memory, '
+              f'{geo["registers"]} registers, {geo["spill_bytes"]} B local (spill) a thread')
         per_stage.append(dict(shape=[rows, c], ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
-                              bound_ms=bound, bound_by=by, library_ms=None,
+                              composition_ms=composition_ms,
+                              bound_ms=bound, bound_by=by, library_ms=None, geometry=geo,
                               max_abs_err=worst[torch.bfloat16][0],
                               max_abs_err_f32=worst[torch.float32][0]))
-        del x, args, params
+        del x, args, params, bf
         torch.cuda.empty_cache()
     top = per_stage[0]
     return dict(name='swin_mlp', route='cuda', source='yolact_minimal_torch/csrc/swin_mlp.cu',
                 replaces='yolact_minimal_tpu/ops/swin_mlp.py:128',
                 max_abs_err=top['max_abs_err'],
                 agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
-                          f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes',
+                          f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes; two bf16 '
+                          f'launches bit-equal',
                 ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
                 bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
-                library_ms=None, per_stage=per_stage)
+                library_ms=None,
+                library='none (no single PyTorch call); composition_ms in per_stage: bf16 '
+                        'F.layer_norm -> F.linear -> F.gelu -> F.linear -> + x',
+                per_stage=per_stage)
+
 
 def _block_inputs(dev, g, stage):
     """Seeded inputs of the two block kernels at stage `stage` of swin_tiny

@@ -13,7 +13,7 @@ from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
 from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
-from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
+from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
 from yolact_minimal_torch.ops.window_attention import (window_attention,
                                                        window_attention_plain)
 
@@ -116,26 +116,59 @@ def test_window_attention_kernel_matches_plain(card, dtype, tol, heads, nw, mask
     _assert_close_rel(got, ref, tol)
 
 
-@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
-@pytest.mark.parametrize('c,rows', [(96, 1000), (192, 203), (384, 289), (768, 71)])
-def test_swin_mlp_kernel_matches_plain(card, dtype, tol, c, rows):
-    rng = np.random.RandomState(1)
+def _mlp_inputs(card, rng, rows, c, dtype):
     dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
     x = dev(rng.randn(rows, c)).to(dtype)
     params = (dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
               dev(rng.randn(4 * c, c) * 0.05), dev(rng.randn(4 * c) * 0.05),
               dev(rng.randn(c, 4 * c) * 0.05), dev(rng.randn(c) * 0.05))
+    return x, params
+
+
+# Row counts that straddle the bf16 kernel's tiles (64 or 128 rows) and its
+# clusters of two tiles: one row, one tile less or more one row, two tiles
+# less or more one row; and stage 3's 4624 rows at C = 768.
+MLP_ROWS = [(c, rows) for c, first in ((96, 1000), (192, 203), (384, 289), (768, 71))
+            for rows in (first, 1, 63, 65, 127, 129)] + [(768, 4624)]
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('c,rows', MLP_ROWS)
+def test_swin_mlp_kernel_matches_plain(card, dtype, tol, c, rows):
+    rng = np.random.RandomState(1)
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    x, params = _mlp_inputs(card, rng, rows, c, dtype)
     before = mlp_block.launches
     got = mlp_block(x, *params)
     torch.cuda.synchronize()
     assert mlp_block.launches == before + 1
     ref = mlp_block_plain(x, *params)
     assert got.dtype == dtype and got.shape == ref.shape
-    # rows are ragged against the kernel's 64- and 32-row blocks
+    # rows are ragged against the kernel's tiles
     _assert_close_rel(got, ref, tol)
     with pytest.raises(ValueError, match='the kernel takes C in'):
         mlp_block(x[:, :64].contiguous(), *(dev(rng.randn(*s)) for s in
                                             ((64,), (64,), (256, 64), (256,), (64, 256), (64,))))
+
+
+@pytest.mark.parametrize('c,rows', [(96, 295936), (768, 4624), (384, 1)])
+def test_swin_mlp_geometry_covers_the_rows(card, c, rows):
+    geo = kernel_geometry(c, rows)
+    assert geo['rows_per_tile'] * geo['tiles'] >= rows > geo['rows_per_tile'] * (geo['tiles'] - 1)
+    assert 1 <= geo['blocks'] <= geo['tiles'] and geo['threads'] % 128 == 0
+    assert 0 < geo['smem_bytes'] <= 232448 and 0 < geo['registers'] <= 255
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+def test_swin_mlp_kernel_is_deterministic(card, c):
+    # no atomics and every sum in a fixed order: two launches, the same bits
+    x, params = _mlp_inputs(card, np.random.RandomState(2), 1000, c, torch.bfloat16)
+    k1, k2 = params[2].bfloat16(), params[4].bfloat16()
+    args = (x, params[0], params[1], k1, params[3], k2, params[5])
+    first = mlp_block(*args)
+    second = mlp_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _block_params(card, rng, c, heads, nw, dtype, masked, padded):

@@ -92,3 +92,19 @@ def mlp_block(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
 
 
 mlp_block.launches = 0
+
+
+GEOMETRY_KEYS = ('rows_per_tile', 'cluster', 'blocks', 'tiles', 'stages', 'smem_bytes',
+                 'threads', 'registers', 'spill_bytes')
+
+
+def kernel_geometry(c: int, rows: int) -> dict:
+    """The bf16 kernel's launch geometry for `rows` rows of width `c` on the
+    current card, with the registers and local (spill) bytes a thread that
+    the compiled kernel reports."""
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    fn = _build.load('swin_mlp').swin_mlp_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.launch(fn, c, rows, ctypes.addressof(out))
+    return dict(zip(GEOMETRY_KEYS, out))
