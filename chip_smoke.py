@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits nonzero:
   1. the card's name and power limit, torch's CUDA version, nvcc's version,
-     whether triton imports;
+     whether triton, cv2 and PIL import;
   2. build the CUDA kernels from yolact_minimal_torch/csrc/ (nvcc, sm_90a,
      one process per source, started together);
   3. each kernel against its plain PyTorch version on the card, at the main
@@ -14,8 +14,11 @@ Phases, in order; any failure exits nonzero:
      shifted and unshifted (the whole-block kernel with the padded map's
      rowmask and once without), the two block kernels beside the times of
      what they replace, the MLP kernel beside a composition of PyTorch calls,
-     with its launch geometry and a check that two launches agree bit for
-     bit;
+     the window-attention and MLP kernels with their launch geometry and a
+     check that two launches agree bit for bit;
+  3b. the detect CLI (yolact_minimal_torch.detect.main) on two seeded PNGs of
+     different shapes with a seeded res50_coco .pth, from a temporary working
+     directory: both drawn images must come back at their input shapes;
   4. a main path at full width: res50_coco at 544, batch 16, seeded random
      weights, bf16: Detector.detect_fixed for a few batches (img/s, host
      clock, untraced), then Detector.__call__ + postprocess_host on two
@@ -47,10 +50,16 @@ output; for the bool masks of mask_finalize that is 0 or 1, and the stated
 tolerance holds `mismatch_frac`, the share of mask pixels that differ.
 `launches` counts the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
-the 'whole' path for kernel 6; `launches_by_path` has all five paths. `bound_ms` is held to the
+the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
+CLI's, res50_coco/cli, too). `bound_ms` is held to the
 peak named in `peak`. The swin kernels' top-level numbers are those of the
-stage-0 shape in bf16; `per_stage` lists all four.
+stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
+around one call, the wrapper's host work included; window attention also
+has `device_ms`, its kernel's device time under torch.profiler (and SDPA's,
+`library_device_ms`), since at stages 1-3 the host's launch overhead sets a
+floor under the event time.
 """
+import contextlib
 import json
 import re
 import statistics
@@ -101,10 +110,14 @@ SWIN_KERNELS = ('window_attention', 'swin_mlp', 'attn_block', 'swin_block')
 SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
                       'attn_block': ('attn_block', 'swin_mlp'),
                       'whole': ('swin_block',)}
-# The swin main paths: the form of each stage's blocks. 'mixed' takes for each
-# stage the form that the stage table (phase_stage_forms) found fastest on an
-# H100 at 700 W with the wgmma MLP kernel: the whole-block kernel at stage 0,
-# the attention half-block kernel at stage 1, the composed form after.
+# The swin main paths: the form of each stage's blocks. 'mixed' is the
+# whole-block kernel at stage 0, the attention half-block kernel at stage 1
+# and the composed form after: what the stage table (phase_stage_forms)
+# favoured with the float32-product window-attention kernel. With the
+# tensor-core one the composed and attention half-block forms trade places
+# at stages 1-2 from run to run, so 'mixed' is not known to be the fastest
+# mix (PERF.md, sections 5 and 6); it stays the path that drives kernels 5
+# and 6 in one forward.
 SWIN_PATHS = {'composed': ('composed',) * 4, 'attn_block': ('attn_block',) * 4,
               'whole': ('whole',) * 4,
               'mixed': ('whole', 'attn_block', 'composed', 'composed')}
@@ -116,7 +129,7 @@ FORM_REL_TOL = 1e-4
 GROUPS = (
     ('suppression kernel', r'suppression_kernel'),
     ('mask_finalize kernel', r'mask_finalize_kernel'),
-    ('window_attention kernel', r'window_attention_kernel'),
+    ('window_attention kernel', r'window_attention_(bf16|f32)_kernel'),
     ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel'),
     ('attn_block kernel', r'attn_block_bf16_kernel|attn_block_f32_kernel'),
     ('swin_block kernel', r'swin_block_bf16_kernel|swin_block_f32_kernel'),
@@ -145,6 +158,22 @@ def _time_ms(fn, warmup=3, iters=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, iters=20):
+    """Device time of one call of fn: the CUDA kernels it launches, summed
+    over `iters` calls under torch.profiler, over `iters`. Unlike _time_ms it
+    leaves out the host's launch overhead, which sets a floor under a small
+    kernel's event time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
 def _bound_ms(n_bytes, n_flops, peak):
@@ -176,6 +205,19 @@ def phase_env():
         print(f'triton {triton.__version__} imports')
     except ImportError as e:
         print(f'triton does not import: {e}')
+    # found without importing them: the CLI phase runs with cv2 hidden
+    import importlib.metadata
+    import importlib.util
+    dists = importlib.metadata.packages_distributions()
+    libs = []
+    for name in ('cv2', 'PIL'):
+        if importlib.util.find_spec(name) is None:
+            libs.append(f'{name} is not installed')
+        else:
+            versions = ', '.join(f'{d} {importlib.metadata.version(d)}'
+                                 for d in sorted(set(dists.get(name, ()))))
+            libs.append(f'{name} is installed ({versions or "no distribution record"})')
+    print(f'image libraries: {"; ".join(libs)}')
 
 
 def phase_build():
@@ -299,15 +341,19 @@ def _rel_err(got, ref):
 def check_window_attention(dev):
     """Kernel 3 at the four stage shapes of swin_tiny 544/b16: bf16 and
     float32, shifted (region ids) and unshifted, against the plain version;
-    timed in bf16 on the shifted form, beside one
-    F.scaled_dot_product_attention call on the same q, k, v with the bias and
-    mask folded into attn_mask."""
+    two bf16 launches on the same input must give the same bits. Timed in
+    bf16 on the shifted form, beside one F.scaled_dot_product_attention call
+    on the same q, k, v with the bias and mask folded into attn_mask. Prints
+    the bf16 launch geometry."""
     import torch
     import torch.nn.functional as F
     from yolact_minimal_torch.models.swin import shifted_window_regions
-    from yolact_minimal_torch.ops.window_attention import (NEG, window_attention,
+    from yolact_minimal_torch.ops.window_attention import (NEG, kernel_attributes,
+                                                           kernel_geometry, window_attention,
                                                            window_attention_plain)
     g = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    attrs = kernel_attributes()
     n, per_stage = 49, []
     for stage, (bnw, nw, c, heads, _) in enumerate(SWIN_STAGES):
         side = int(round(nw ** 0.5)) * 7
@@ -327,6 +373,9 @@ def check_window_attention(dev):
                        f'{"shifted" if reg is not None else "unshifted"}: |kernel - plain| '
                        f'{err:.3g} is {rel:.3g} of max |plain| (> {tol:.3g})')
                 worst[dtype] = max(worst.get(dtype, (0.0, 0.0)), (err, rel))
+                if dtype == torch.bfloat16:
+                    _check(torch.equal(got, window_attention(qkv, bias, reg, heads)),
+                           f'window_attention stage {stage}: two launches differ')
                 del got, ref
         qkv, bias = qkv32.to(torch.bfloat16), bias32.to(torch.bfloat16)
         del qkv32
@@ -343,17 +392,34 @@ def check_window_attention(dev):
                               window_attention_plain(qkv, bias, region, heads))
         _check(lib_rel < 5e-2, f'the library yardstick computes something else ({lib_rel})')
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        device_ms = _device_ms(lambda: window_attention(qkv, bias, region, heads))
+        library_device_ms = _device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         # bytes: qkv, bias and region read once, out written once; operations:
         # the two products of every window and head
         n_bytes = (qkv.numel() + bias.numel() + bnw * n * c) * 2 + region.numel() * 4
         bound, by = _bound_ms(n_bytes, bnw * heads * 4 * n * n * hd, BF16_PEAK)
         print(f'kernel window_attention stage {stage} qkv [{bnw}, {n}, {3 * c}] heads {heads} '
-              f'bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound '
-              f'{bound:.5f} ms ({by}); |kernel - plain| / max |plain|: bf16 '
+              f'bf16: {ms:.4f} ms (device {device_ms:.4f}), plain {plain_ms:.4f} ms, SDPA '
+              f'{library_ms:.4f} ms (device {library_device_ms:.4f}), bound {bound:.5f} ms '
+              f'({by}); |kernel - plain| / max |plain|: bf16 '
               f'{worst[torch.bfloat16][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
-              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g})')
-        per_stage.append(dict(shape=[bnw, n, 3 * c], heads=heads, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by, library_ms=library_ms,
+              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g}); two bf16 launches '
+              f'bit-equal')
+        geo = kernel_geometry(bnw, heads, sms)
+        units = [len(range(gr // heads, bnw, geo.per_head)) for gr in range(geo.groups)]
+        geometry = dict(blocks=geo.blocks, groups=geo.groups, windows_per_head_step=geo.per_head,
+                        units_per_group=[min(units), max(units)], sms=sms, **attrs)
+        print(f'  geometry: {geo.blocks} blocks of {attrs["threads"]} threads ('
+              f'{attrs["groups_per_block"]} groups of 4 warps, {attrs["blocks_per_sm"]} blocks an '
+              f'SM on {sms} SMs) hold {geo.groups} groups, {geo.per_head} a head; '
+              f'{min(units)}-{max(units)} (window, head) units a group of {bnw * heads}; '
+              f'{attrs["stages"]} ring slots, {attrs["smem_bytes"]} B shared memory a block, '
+              f'{attrs["registers"]} registers, {attrs["spill_bytes"]} B local (spill) a thread')
+        per_stage.append(dict(shape=[bnw, n, 3 * c], heads=heads, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                              library_ms=library_ms, library_device_ms=library_device_ms,
+                              geometry=geometry,
                               max_abs_err=worst[torch.bfloat16][0],
                               max_abs_err_f32=worst[torch.float32][0]))
         del qkv, bias, q, k, v, mask, lib
@@ -365,10 +431,10 @@ def check_window_attention(dev):
                 max_abs_err=top['max_abs_err'],
                 agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
                           f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes, shifted '
-                          f'and unshifted',
-                ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
-                bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
-                library_ms=top['library_ms'],
+                          f'and unshifted; two bf16 launches bit-equal',
+                ms=top['ms'], kernel_ms=top['ms'], device_ms=top['device_ms'],
+                plain_ms=top['plain_ms'], bound_ms=top['bound_ms'], bound_by=top['bound_by'],
+                peak=BF16_PEAK, library_ms=top['library_ms'],
                 library='F.scaled_dot_product_attention, attn_mask = bias + mask',
                 per_stage=per_stage)
 
@@ -892,6 +958,88 @@ def phase_numerics(dev, name, det_bf16, image, form='composed', composed_out=Non
     return out_gpu
 
 
+@contextlib.contextmanager
+def _without_cv2():
+    """cv2 does not import inside the block, as on a machine without it."""
+    from yolact_minimal_torch.utils import image_io
+    saved = {k: v for k, v in sys.modules.items() if k.split('.')[0] == 'cv2'}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules['cv2'] = None
+    image_io.backend.cache_clear()
+    try:
+        yield
+    finally:
+        del sys.modules['cv2']
+        sys.modules.update(saved)
+        image_io.backend.cache_clear()
+
+
+def phase_cli(dev):
+    """The detect CLI as a user runs it, on the card, with cv2 hidden (so the
+    images go through PIL and val_aug through F.interpolate): two seeded PNGs
+    of different shapes in a temporary folder, a seeded res50_coco state_dict
+    saved as a reference-format .pth (its class head's bias for class 1
+    raised by 6 at every anchor, so that detections pass the CLI's
+    thresholds and the drawing has work), then
+    yolact_minimal_torch.detect.main from a temporary working directory; both
+    drawn images must exist, read back at their input shapes and differ from
+    the input. Returns the kernel launches of the run."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.detect import main as detect_main
+    from yolact_minimal_torch.pipeline import Detector
+    from yolact_minimal_torch.utils import image_io
+
+    rng = np.random.RandomState(8)
+    shapes = {'wide.png': (480, 640), 'square.png': (IMG, IMG)}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, _without_cv2():
+        library = image_io.backend()
+        os.makedirs(os.path.join(tmp, 'images'))
+        for name, (h, w) in shapes.items():
+            # smooth colour ramps plus noise
+            ramp = np.linspace(0, 200, w)[None, :, None] + np.linspace(0, 50, h)[:, None, None]
+            img = np.clip(ramp + rng.randint(0, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+            image_io.imwrite(os.path.join(tmp, 'images', name), img)
+        det = Detector(get_config('res50_coco', img_size=IMG), device=dev, seed=0)
+        sd = {k: v.cpu() for k, v in det.model.state_dict().items()}
+        sd['prediction_layers.conf_layer.bias'][1::81] += 6.0
+        weight = os.path.join(tmp, 'seeded_res50_coco.pth')
+        torch.save(sd, weight)
+        del det, sd
+        counters = _counters('res50_coco')
+        for fn in counters.values():
+            fn.launches = 0
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            detect_main(['--weight', weight, '--image', os.path.join(tmp, 'images'),
+                         '--img_size', str(IMG)])
+            seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        for name, shape in shapes.items():
+            path = os.path.join(tmp, 'results', 'images', name)
+            _check(os.path.exists(path), f'the CLI wrote no {name}')
+            out = image_io.imread(path)
+            src = image_io.imread(os.path.join(tmp, 'images', name))
+            _check(out.shape == shape + (3,), f'{name}: drawn image {out.shape}, input {shape}')
+            _check(not np.array_equal(out, src), f'{name}: nothing was drawn')
+    _check(launches['suppression_iou_max'] == len(shapes),
+           f'the CLI made {launches} kernel launches for {len(shapes)} images')
+    print(f'detect CLI on the card: {len(shapes)} PNGs {list(shapes.values())} in {seconds:.2f} s '
+          f'(model build and first-call warm-up included), cv2 hidden, image library '
+          f'{library}; both drawn images read back at their input shapes; '
+          f'launches {launches}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -906,7 +1054,7 @@ def main():
                check_window_attention(dev), check_swin_mlp(dev)]
     kernels += [check_attn_block(dev, kernels[2]), check_swin_block(dev, *kernels[2:])]
     torch.cuda.empty_cache()
-    by_path = {}
+    by_path = {'res50_coco/cli': phase_cli(dev)}
     for name, forms in (('res50_coco', ('composed',)), ('swin_tiny_coco', tuple(SWIN_PATHS))):
         det = images = composed_out = None
         for form in forms:

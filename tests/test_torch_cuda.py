@@ -97,14 +97,24 @@ def _assert_close_rel(got, ref, tol):
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
+# (heads, windows B*nW, windows an image nW): three images of 16 and of 9
+# windows; every head count at window counts that no grid of the bf16 kernel
+# divides (its groups walk the windows of one head in steps of
+# kernel_geometry(...).per_head); stage 0 (6400 windows at C = 96) and stage 3
+# (144 at C = 768) of swin_tiny at 544, batch 16.
+WINDOW_CASES = [(3, 48, 16), (24, 27, 9)] + \
+    [(heads, bnw, 1) for heads in (3, 6, 12, 24) for bnw in (1, 2, 131, 133)] + \
+    [(3, 6400, 400), (24, 144, 9)]
+
+
 @pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
-@pytest.mark.parametrize('heads,nw', [(3, 16), (24, 9)])
+@pytest.mark.parametrize('heads,bnw,nw', WINDOW_CASES)
 @pytest.mark.parametrize('masked', [False, True])
-def test_window_attention_kernel_matches_plain(card, dtype, tol, heads, nw, masked):
+def test_window_attention_kernel_matches_plain(card, dtype, tol, heads, bnw, nw, masked):
     from yolact_minimal_torch.models.swin import shifted_window_regions
     rng = np.random.RandomState(0)
     c, side = heads * 32, int(nw ** 0.5) * 7
-    qkv = torch.from_numpy(rng.randn(3 * nw, 49, 3 * c).astype(np.float32)).to(card, dtype)
+    qkv = torch.from_numpy(rng.randn(bnw, 49, 3 * c).astype(np.float32)).to(card, dtype)
     bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.1).astype(np.float32)).to(card, dtype)
     region = torch.from_numpy(shifted_window_regions(side, side)).to(card) if masked else None
     before = window_attention.launches
@@ -112,8 +122,22 @@ def test_window_attention_kernel_matches_plain(card, dtype, tol, heads, nw, mask
     torch.cuda.synchronize()
     assert window_attention.launches == before + 1
     ref = window_attention_plain(qkv, bias, region, heads)
-    assert got.dtype == dtype and got.shape == ref.shape == (3 * nw, 49, c)
+    assert got.dtype == dtype and got.shape == ref.shape == (bnw, 49, c)
     _assert_close_rel(got, ref, tol)
+    # a fixed unit order and no atomics: two launches, the same bits
+    assert torch.equal(window_attention(qkv, bias, region, heads), got)
+
+
+def test_window_attention_kernel_is_built_as_the_geometry_assumes(card):
+    from yolact_minimal_torch.ops.window_attention import (BLOCKS_PER_SM, GROUPS_PER_BLOCK,
+                                                           kernel_attributes)
+    attrs = kernel_attributes()
+    assert attrs['groups_per_block'] == GROUPS_PER_BLOCK
+    assert attrs['blocks_per_sm'] == BLOCKS_PER_SM
+    assert attrs['threads'] == 128 * GROUPS_PER_BLOCK
+    # BLOCKS_PER_SM blocks fit a multiprocessor's shared memory and registers
+    assert 0 < attrs['smem_bytes'] * BLOCKS_PER_SM <= 232448
+    assert 0 < attrs['registers'] * attrs['threads'] * BLOCKS_PER_SM <= 65536
 
 
 def _mlp_inputs(card, rng, rows, c, dtype):
@@ -125,9 +149,9 @@ def _mlp_inputs(card, rng, rows, c, dtype):
     return x, params
 
 
-# Row counts that straddle the bf16 kernel's tiles (64 or 128 rows) and its
-# clusters of two tiles: one row, one tile less or more one row, two tiles
-# less or more one row; and stage 3's 4624 rows at C = 768.
+# Row counts one either side of 64 and of 128 rows (the bf16 kernel's tiles:
+# 128 rows at C = 96 and 192, 64 at 384 and 768; a block walks whole tiles,
+# in clusters of one), one row, and stage 3's 4624 rows at C = 768.
 MLP_ROWS = [(c, rows) for c, first in ((96, 1000), (192, 203), (384, 289), (768, 71))
             for rows in (first, 1, 63, 65, 127, 129)] + [(768, 4624)]
 

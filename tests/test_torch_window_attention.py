@@ -8,7 +8,8 @@ import torch
 
 from yolact_minimal_tpu.models.swin import shifted_window_regions as jax_regions
 from yolact_minimal_tpu.ops.window_attention import _attention_xla, window_attention_fused
-from yolact_minimal_torch.ops.window_attention import (window_attention,
+from yolact_minimal_torch.ops.window_attention import (BLOCKS_PER_SM, GROUPS_PER_BLOCK,
+                                                       kernel_geometry, window_attention,
                                                        window_attention_plain)
 
 torch.set_num_threads(1)
@@ -86,3 +87,25 @@ def test_wrapper_runs_plain_on_cpu_and_checks_its_inputs():
         window_attention(_torch(qkv)[:5].contiguous(), _torch(bias), _torch(region), 3)
     with pytest.raises(ValueError, match='unsupported device'):
         window_attention(_torch(qkv).to('meta'), _torch(bias).to('meta'), None, 3)
+
+
+# (windows B*nW, heads): swin_tiny's four stages at 544, batch 16, and window
+# counts that no grid divides
+GEOMETRY_CASES = [(6400, 3), (1600, 6), (400, 12), (144, 24),
+                  (1, 3), (2, 6), (131, 12), (133, 24), (6400, 24)]
+
+
+@pytest.mark.parametrize('bnw,heads', GEOMETRY_CASES)
+@pytest.mark.parametrize('sms', [132, 114, 1])
+def test_kernel_geometry_walks_every_unit_once(bnw, heads, sms):
+    geo = kernel_geometry(bnw, heads, sms)
+    assert 1 <= geo.blocks <= max(sms * BLOCKS_PER_SM, -(-heads // GROUPS_PER_BLOCK))
+    assert geo.groups % heads == 0 and geo.groups // heads == geo.per_head <= bnw
+    assert geo.blocks == -(-geo.groups // GROUPS_PER_BLOCK)
+    walked = [u for b in range(geo.blocks) for u in geo.units(b)]
+    assert sorted(walked) == [(w, h) for w in range(bnw) for h in range(heads)]
+    # the groups walk within one unit of each other
+    counts = [len(range(g // heads, bnw, geo.per_head)) for g in range(geo.groups)]
+    assert sum(counts) == bnw * heads and max(counts) - min(counts) <= 1
+    if sms * BLOCKS_PER_SM * GROUPS_PER_BLOCK >= heads * min(bnw, 2):
+        assert geo.per_head == min(bnw, sms * BLOCKS_PER_SM * GROUPS_PER_BLOCK // heads)

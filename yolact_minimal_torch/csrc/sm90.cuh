@@ -10,10 +10,36 @@
 // CU_TENSOR_MAP_SWIZZLE_128B and a 64-wide box; threads write it through
 // sw128_offset.
 #pragma once
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
+
+// Host: cuTensorMapEncodeTiled from the driver, looked up at run time through
+// the CUDA runtime (no -lcuda); null where the driver has none.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -22,6 +48,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // Byte offset of element (r, c), c < 64, in a swizzled tile of 64-wide rows.
 __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// Byte offset of element (r, c), c < 32, in a tile of 64-byte rows that TMA
+// wrote with CU_TENSOR_MAP_SWIZZLE_64B (the tile on a 512-byte boundary): the
+// 16-byte chunk c / 8 of row r is stored at chunk (c / 8) ^ ((r / 2) % 4), so
+// the 8 rows of an ldmatrix matrix fall on 8 different bank groups.
+__device__ __forceinline__ uint32_t sw64_offset(int r, int c) {
+  return r * 64 + ((((c >> 3) ^ (r >> 1)) & 3) << 4) + (c & 7) * 2;
 }
 
 // Descriptor of a K-major operand in the swizzled layout at shared address

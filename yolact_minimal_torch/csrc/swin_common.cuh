@@ -131,6 +131,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
                : "r"(addr));
 }
 
+// The same four matrices, each transposed: lane l gets in r[m] the pair
+// (rows 2 * (lane % 4), + 1; column lane / 4) of matrix m. With the rows of a
+// matrix stored [k][n] (n contiguous), that is the B operand of mma_bf16.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // d[16x8] += a[16x16] b[16x8], bf16 operands, float32 accumulators. With
 // g = lane / 4 and t = lane % 4: a holds (row g | g + 8, k 2t.. | 2t + 8..)
 // as a0 = (g, 2t), a1 = (g + 8, 2t), a2 = (g, 2t + 8), a3 = (g + 8, 2t + 8);

@@ -45,8 +45,6 @@
 // float32: plain FMAs on the CUDA cores, no TF32, summing in index order so
 // that it can be held to a CPU run; BM = 32 rows.
 // Rows beyond R are zero in shared memory and never written.
-#include <cuda.h>
-
 #include "sm90.cuh"
 #include "swin_common.cuh"
 
@@ -325,33 +323,9 @@ mlp_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm1,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, looked up at run time (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A row-major bf16 [outer, inner] matrix in boxes of [box_outer, 64], 128-byte swizzled.
 bool weight_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
-  EncodeTiledFn fn = encode_tiled();
+  sm90::EncodeTiledFn fn = sm90::encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * sizeof(bf16)};

@@ -4,8 +4,10 @@
         --image DIR [--cfg res50_coco] [--device cuda|cpu]
 
 Writes the drawn images to results/images/. The weight is a reference-format
-`.pth` state_dict. Video input, --traditional_nms and --save_lincomb are not
-ported yet.
+`.pth` state_dict. Images are read and written with cv2 where it imports,
+else PIL (utils/image_io.py); with neither the CLI stops before the detector
+is built. Video input, --traditional_nms and --save_lincomb are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import time
 from yolact_minimal_torch.config import cfg_name_from_weight, get_config
 from yolact_minimal_torch.data.augment import val_aug
 from yolact_minimal_torch.pipeline import load_detector
+from yolact_minimal_torch.utils import image_io
 from yolact_minimal_torch.utils.visualize import draw_img
 
 
@@ -32,7 +35,6 @@ def detect_one(detector, cfg, img_origin):
 
 
 def main(argv=None):
-    import cv2
     parser = argparse.ArgumentParser(description='YOLACT detection (PyTorch/CUDA port)')
     parser.add_argument('--weight', type=str, required=True)
     parser.add_argument('--image', type=str, required=True,
@@ -51,22 +53,28 @@ def main(argv=None):
     name = args.cfg or cfg_name_from_weight(args.weight)
     cfg = get_config(name, mode='detect', **{
         k: v for k, v in vars(args).items() if k not in ('weight', 'cfg', 'device')})
-    detector = load_detector(args.weight, cfg, device=args.device)
-
     paths = sorted(glob.glob(osp.join(cfg.image, '*.jpg')) +
                    glob.glob(osp.join(cfg.image, '*.png')))
+    try:        # before the detector is built: fail at once without an image library
+        library = image_io.backend()
+    except ImportError as e:
+        raise SystemExit(str(e)) from None
+    detector = load_detector(args.weight, cfg, device=args.device)
+
     if not paths:
         raise SystemExit(f'No .jpg/.png images in {cfg.image}')
+    print(f'image library: {library}')
     os.makedirs('results/images', exist_ok=True)
     t0 = None
     for i, path in enumerate(paths):
         if i == 1:
             t0 = time.perf_counter()     # the first image includes warm-up
-        img = cv2.imread(path)
-        if img is None:
-            raise SystemExit(f'Cannot read {path}')
+        try:
+            img = image_io.imread(path)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f'Cannot read {path}: {e}') from None
         out = detect_one(detector, cfg, img)
-        cv2.imwrite(osp.join('results/images', osp.basename(path)), out)
+        image_io.imwrite(osp.join('results/images', osp.basename(path)), out)
         print(f'\rDetecting: {i + 1}/{len(paths)}', end='')
     if t0 is not None:
         print(f'\nfps: {(len(paths) - 1) / (time.perf_counter() - t0):.2f}', end='')

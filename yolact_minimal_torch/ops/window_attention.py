@@ -15,7 +15,9 @@ in float32 and is rounded once.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -25,6 +27,52 @@ NEG = -100.0       # additive fill for pairs in different regions (not -inf)
 # What the kernel is compiled for: tokens per window and head width.
 KERNEL_TOKENS = 49
 KERNEL_HEAD_DIM = 32
+# The bf16 kernel's blocks: groups of four warps a block, blocks resident on
+# one multiprocessor (csrc/window_attention.cu reports the values it was
+# compiled with through `kernel_attributes`).
+GROUPS_PER_BLOCK = 2
+BLOCKS_PER_SM = 2
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The bf16 launch: `blocks` persistent blocks hold `groups` groups of
+    four warps (GROUPS_PER_BLOCK a block; a last odd one idles). Group g takes
+    head g % heads and walks windows g // heads, + per_head, ... below bnw,
+    one (window, head) unit at a time; groups is per_head * heads."""
+    bnw: int
+    heads: int
+    blocks: int
+    groups: int
+    per_head: int
+
+    def units(self, block: int) -> List[Tuple[int, int]]:
+        """The (window, head) units block `block` walks, group by group, each
+        group's in its order."""
+        return [(w, g % self.heads)
+                for g in range(block * GROUPS_PER_BLOCK,
+                               min((block + 1) * GROUPS_PER_BLOCK, self.groups))
+                for w in range(g // self.heads, self.bnw, self.per_head)]
+
+
+@lru_cache(maxsize=64)
+def kernel_geometry(bnw: int, heads: int, sms: int) -> Geometry:
+    """The bf16 kernel's launch for bnw windows of `heads` heads on a card of
+    `sms` multiprocessors: as many groups as stay resident, a whole number for
+    every head and at most one a window, so that each head's windows are
+    dealt round-robin to the same number of groups and a group's bias stays
+    that of one head for its whole walk."""
+    if bnw <= 0 or heads <= 0 or sms <= 0:
+        raise ValueError(f'kernel_geometry: bnw={bnw}, heads={heads}, sms={sms}')
+    per_head = max(1, min(bnw, sms * BLOCKS_PER_SM * GROUPS_PER_BLOCK // heads))
+    groups = per_head * heads
+    return Geometry(bnw=bnw, heads=heads, blocks=-(-groups // GROUPS_PER_BLOCK),
+                    groups=groups, per_head=per_head)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def window_attention_plain(qkv, bias, region: Optional[torch.Tensor],
@@ -93,18 +141,37 @@ def window_attention(qkv, bias, region: Optional[torch.Tensor],
     out = torch.empty((bnw, n, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
+    index = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
+    geo = kernel_geometry(bnw, heads, _sm_count(index))
     lib = _build.load('window_attention')
     fn = lib.window_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
                       None if region is None else region.data_ptr(), out.data_ptr(),
                       bnw, heads, 0 if region is None else region.shape[0],
-                      int(qkv.dtype == torch.bfloat16), stream)
+                      int(qkv.dtype == torch.bfloat16), geo.blocks, geo.groups, geo.per_head,
+                      stream)
     window_attention.launches += 1
     return out
 
 
 window_attention.launches = 0
+
+
+ATTRIBUTE_KEYS = ('groups_per_block', 'blocks_per_sm', 'stages', 'threads', 'smem_bytes',
+                  'registers', 'spill_bytes')
+
+
+def kernel_attributes() -> dict:
+    """The compiled bf16 kernel's shape: groups a block, blocks a
+    multiprocessor, ring slots a group, threads and dynamic shared memory
+    bytes a block, and the registers and local (spill) bytes a thread."""
+    out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+    fn = _build.load('window_attention').window_attention_attributes
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.launch(fn, ctypes.addressof(out))
+    return dict(zip(ATTRIBUTE_KEYS, out))
