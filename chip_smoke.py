@@ -15,7 +15,10 @@ Phases, in order; any failure exits nonzero:
      rowmask and once without), the two block kernels beside the times of
      what they replace, the MLP kernel beside a composition of PyTorch calls,
      the window-attention and MLP kernels with their launch geometry and a
-     check that two launches agree bit for bit;
+     check that two launches agree bit for bit; the mask kernel with its
+     launch geometry on input (a), a fixture with crop, and (b), the same
+     without, and after phase 4 on (c), the res50 path's own slate, each
+     timed with events and in device time;
   3b. the detect CLI (yolact_minimal_torch.detect.main) on two seeded PNGs of
      different shapes with a seeded res50_coco .pth, from a temporary working
      directory: both drawn images must come back at their input shapes;
@@ -48,7 +51,8 @@ The line before the last is a JSON object {"kernels": [...]}; the last is
 In the kernels line `max_abs_err` is the largest |kernel - plain| over the
 output; for the bool masks of mask_finalize that is 0 or 1, and the stated
 tolerance holds `mismatch_frac`, the share of mask pixels that differ.
-`launches` counts the res50_coco path for kernels 1-2, the composed
+mask_finalize's `ms` is input (a); `inputs` has (a)-(c). `launches` counts
+the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
 CLI's, res50_coco/cli, too). `bound_ms` is held to the
@@ -273,12 +277,10 @@ def check_suppression(dev):
                 peak=FP32_PEAK, library_ms=None)
 
 
-def check_mask_finalize(dev):
-    """Kernel 2 at B=16, D=100, proto 136x136x32 -> 544x544, crop on and
-    off, some invalid slots; mismatch fraction vs the plain version < 1e-4."""
+def _mask_fixture(dev):
+    """Phase 3's mask inputs: B=16, D=100, proto 136x136x32, boxes 0.1-0.4
+    wide, 30 % of the slots invalid."""
     import torch
-    from yolact_minimal_torch.ops.boxes import sanitize_coordinates
-    from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
     g = torch.Generator(device=dev).manual_seed(1)
     ph = IMG // 4
     proto = torch.randn(BATCH, ph, ph, 32, device=dev, generator=g)
@@ -287,25 +289,71 @@ def check_mask_finalize(dev):
     wh = 0.1 + torch.rand(BATCH, SLOTS, 2, device=dev, generator=g) * 0.3
     boxes = torch.cat([xy, (xy + wh).clamp(max=1.0)], dim=-1).contiguous()
     valid = torch.rand(BATCH, SLOTS, device=dev, generator=g) > 0.3
+    return proto, coefs, boxes, valid
 
-    worst, err = 0.0, 0.0
-    for do_crop in (True, False):
-        got = mask_finalize(proto, coefs, boxes, valid, IMG, do_crop)
-        torch.cuda.synchronize()
-        ref = mask_finalize_plain(proto, coefs, boxes, valid, IMG, do_crop)
-        _check(ref.any().item(), 'kernel 2 fixture is empty')
-        diff = got != ref
-        mismatch = diff.float().mean().item()
-        # |kernel - plain| of 0/1 outputs: 1 as soon as one pixel flips
-        worst, err = max(worst, mismatch), max(err, float(diff.any().item()))
-        _check(mismatch < MASK_MISMATCH,
-               f'mask kernel mismatch {mismatch} (do_crop={do_crop})')
-        _check(not got[~valid].any().item(), 'mask kernel wrote an invalid slot')
-        del got, ref, diff
-        torch.cuda.empty_cache()
 
+def _hold_mask(what, proto, coefs, boxes, valid, do_crop):
+    """The mask kernel against its plain version on one input: the mismatch
+    fraction must stay below MASK_MISMATCH and invalid slots empty. Returns
+    (mismatch fraction, 1.0 if any pixel differs else 0.0)."""
+    import torch
+    from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
+    got = mask_finalize(proto, coefs, boxes, valid, IMG, do_crop)
+    torch.cuda.synchronize()
+    ref = mask_finalize_plain(proto, coefs, boxes, valid, IMG, do_crop)
+    _check(ref.any().item(), f'mask input {what} is empty')
+    diff = got != ref
+    mismatch = diff.float().mean().item()
+    _check(mismatch < MASK_MISMATCH, f'mask kernel mismatch {mismatch} on {what}')
+    _check(not got[~valid].any().item(), f'mask kernel wrote an invalid slot on {what}')
+    out = mismatch, float(diff.any().item())
+    del got, ref, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_mask(what, proto, coefs, boxes, valid, do_crop):
+    """Events and device ms of one mask kernel call, and the share of the
+    valid slots' planes inside their output windows."""
+    from yolact_minimal_torch.ops.mask_finalize import mask_finalize, output_windows
+    ph, pw = proto.shape[1:3]
+    win = output_windows(boxes, valid, ph, pw, IMG, do_crop)
+    area = ((win[..., 1] - win[..., 0]) * (win[..., 3] - win[..., 2])).sum().item()
+    share = area / max(1, int(valid.sum()) * IMG * IMG)
+
+    def call():
+        return mask_finalize(proto, coefs, boxes, valid, IMG, do_crop)
+    ms, dev_ms = _time_ms(call), _device_ms(call)
+    print(f'  {what}: {ms:.4f} ms (events), {dev_ms:.4f} ms (device); windows cover '
+          f'{share:.4f} of the valid slots\' planes')
+    return ms, dev_ms
+
+
+def check_mask_finalize(dev):
+    """Kernel 2 at B=16, D=100, proto 136x136x32 -> 544x544: input (a), the
+    fixture with crop, and (b), the same without crop; mismatch fraction vs
+    the plain version < 1e-4 and invalid slots empty on both. Prints the
+    launch geometry; (c), the res50 path's own slate, follows phase 4
+    (check_mask_finalize_path)."""
+    from yolact_minimal_torch.ops.boxes import sanitize_coordinates
+    from yolact_minimal_torch.ops.mask_finalize import (BAND_ROWS, _tables, kernel_geometry,
+                                                        mask_finalize, mask_finalize_plain)
+    proto, coefs, boxes, valid = _mask_fixture(dev)
+    ph = proto.shape[1]
+    checks = [_hold_mask(f'({k}) fixture, do_crop={c}', proto, coefs, boxes, valid, c)
+              for k, c in (('a', True), ('b', False))]
+    worst, err = max(m for m, _ in checks), max(e for _, e in checks)
+
+    _, tile_rows = _tables(ph, ph, IMG, proto.device)
+    geo = kernel_geometry(BATCH * SLOTS, IMG, 32, tile_rows, ph, proto.device.index or 0)
+    print(f'kernel mask_finalize geometry: {geo["blocks"]} persistent blocks of '
+          f'{geo["threads"]} threads ({geo["blocks_per_sm"]} a multiprocessor on {geo["sms"]}) '
+          f'walk {geo["items"]} (slot, band of {BAND_ROWS} rows) items; {geo["smem_bytes"]} B '
+          f'of shared memory a block, {geo["registers"]} registers, {geo["spill_bytes"]} B spill')
+    ms, dev_ms = _time_mask('(a) fixture, crop', proto, coefs, boxes, valid, True)
+    nocrop_ms, nocrop_dev_ms = _time_mask('(b) fixture, no crop', proto, coefs, boxes, valid,
+                                          False)
     args = (proto, coefs, boxes, valid, IMG, True)
-    ms = _time_ms(lambda: mask_finalize(*args))
     plain_ms = _time_ms(lambda: mask_finalize_plain(*args), warmup=1)
     # bytes: proto, coefs, boxes, valid read once; the bool masks written once.
     n_bytes = proto.numel() * 4 + coefs.numel() * 4 + boxes.numel() * 4 + \
@@ -321,14 +369,33 @@ def check_mask_finalize(dev):
     n_ops = inside * (2 * 32 + 4) + valid.sum().item() * IMG * IMG * 9
     bound, by = _bound_ms(n_bytes, n_ops, FP32_PEAK)
     print(f'kernel mask_finalize [{BATCH}, {SLOTS}, {IMG}, {IMG}]: mismatch '
-          f'{worst:.3g}, {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})')
+          f'{worst:.3g}, {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {bound:.5f} ms ({by})')
     return dict(name='mask_finalize', route='cuda',
                 source='yolact_minimal_torch/csrc/mask_finalize.cu',
                 replaces='yolact_minimal_tpu/ops/pallas_masks.py:160',
                 max_abs_err=err, mismatch_frac=worst,
-                agreement=f'mismatch fraction {worst:.3g} < {MASK_MISMATCH}',
-                ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                peak=FP32_PEAK, library_ms=None)
+                agreement=f'mismatch fraction {worst:.3g} < {MASK_MISMATCH} on inputs (a) '
+                          f'and (b), and on (c) after phase 4',
+                ms=ms, kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, peak=FP32_PEAK, library_ms=None, geometry=geo,
+                inputs={'a_crop': {'ms': ms, 'device_ms': dev_ms},
+                        'b_no_crop': {'ms': nocrop_ms, 'device_ms': nocrop_dev_ms}})
+
+
+def check_mask_finalize_path(det, images, entry):
+    """Input (c): the slate of one res50_coco detect_fixed call on phase 4's
+    images (proto, coefs, boxes and valid from the path), held to the plain
+    version and timed; recorded in the mask kernel's `entry`."""
+    import torch
+    with torch.inference_mode():
+        dets, proto = det._infer(images)
+    inputs = (proto, dets.coefs.contiguous(), dets.boxes.contiguous(), dets.valid.contiguous())
+    mismatch, err = _hold_mask('(c) res50 path slate', *inputs, True)
+    ms, dev_ms = _time_mask('(c) res50 path slate', *inputs, True)
+    entry['inputs']['c_path'] = {'ms': ms, 'device_ms': dev_ms, 'mismatch_frac': mismatch}
+    entry['mismatch_frac'] = max(entry['mismatch_frac'], mismatch)
+    entry['max_abs_err'] = max(entry['max_abs_err'], err)
 
 
 def _rel_err(got, ref):
@@ -1060,6 +1127,8 @@ def main():
         for form in forms:
             path = name if len(forms) == 1 else f'{name}/{form}'
             by_path[path], det, images, host_ms = phase_main_path(dev, name, form, det, images)
+            if name == 'res50_coco':
+                check_mask_finalize_path(det, images, kernels[1])
             phase_profile(det, images, host_ms)
             out = phase_numerics(dev, name, det, images[:1].clone(), form, composed_out)
             composed_out = out if form == 'composed' else composed_out

@@ -52,24 +52,41 @@ def test_suppression_kernel_equals_plain(card):
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
 
 
+# Boxes that the mask kernel's output windows treat as edge cases: on the
+# image border, zero-area (inside, on the far corner, off the image) and the
+# full image.
+EDGE_BOXES = [(0.0, 0.0, 0.3, 0.2), (0.8, 0.7, 1.0, 1.0), (0.0, 0.5, 1.0, 0.6),
+              (0.5, 0.5, 0.5, 0.5), (1.0, 1.0, 1.0, 1.0), (1.2, -0.3, 1.5, -0.1),
+              (0.0, 0.0, 1.0, 1.0), (-0.1, -0.1, 1.1, 1.1)]
+
+
+@pytest.mark.parametrize('slate', ['random', 'edges', 'all_invalid'])
 @pytest.mark.parametrize('do_crop', [True, False])
-@pytest.mark.parametrize('ph,out_size', [(34, 136), (20, 72)])
-def test_mask_kernel_matches_plain(card, do_crop, ph, out_size):
+@pytest.mark.parametrize('ph,out_size', [(34, 136), (20, 72), (136, 544), (19, 75)])
+def test_mask_kernel_matches_plain(card, do_crop, ph, out_size, slate):
+    # 544 = 34 x 16: every output row 16-byte aligned; 136, 72 and 75 are not
+    # multiples of 16, so rows and bands end mid-chunk (75: odd, byte stores)
     rng = np.random.RandomState(0)
     b, d = 2, 16
     proto = torch.from_numpy(rng.normal(size=(b, ph, ph, 32)).astype(np.float32)).to(card)
     coefs = torch.from_numpy(np.tanh(rng.normal(size=(b, d, 32))).astype(np.float32)).to(card)
     xy = rng.uniform(0, 0.6, size=(b, d, 2))
     boxes = np.concatenate([xy, np.clip(xy + rng.uniform(0.1, 0.4, size=(b, d, 2)), 0, 1)], 2)
+    valid = rng.rand(b, d) > 0.3
+    if slate == 'edges':
+        boxes[0, :len(EDGE_BOXES)] = EDGE_BOXES
+        valid[0, :len(EDGE_BOXES)] = True
+    elif slate == 'all_invalid':
+        valid[:] = False
     boxes = torch.from_numpy(boxes.astype(np.float32)).to(card)
-    valid = torch.from_numpy(rng.rand(b, d) > 0.3).to(card)
+    valid = torch.from_numpy(valid).to(card)
     before = mask_finalize.launches
     got = mask_finalize(proto, coefs, boxes, valid, out_size, do_crop)
     torch.cuda.synchronize()
     assert mask_finalize.launches == before + 1
     ref = mask_finalize_plain(proto, coefs, boxes, valid, out_size, do_crop)
     assert got.dtype == torch.bool and got.shape == ref.shape
-    assert ref.any()
+    assert ref.any() == (slate != 'all_invalid')
     # summation order differs: pixels within rounding of 0.5 may flip
     assert (got != ref).float().mean().item() < 1e-4
     assert not got[~valid].any()

@@ -13,7 +13,9 @@ from yolact_minimal_tpu.ops.nms import Detections as JDets
 from yolact_minimal_tpu.ops.nms import assemble_masks as j_assemble
 from yolact_minimal_tpu.ops.nms import finalize_masks_fixed as j_finalize
 from yolact_minimal_tpu.ops.pallas_masks import fused_mask_finalize
-from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
+from yolact_minimal_torch.ops.mask_finalize import (_tables, mask_finalize, mask_finalize_plain,
+                                                    output_windows)
+from yolact_minimal_torch.ops.resize import _gather_lerp
 from yolact_minimal_torch.ops.nms import Detections, assemble_masks
 
 torch.set_num_threads(1)
@@ -110,3 +112,67 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
         mask_finalize(proto, coefs, boxes, valid.float(), 64)
     with pytest.raises(ValueError):
         mask_finalize(proto.permute(0, 2, 1, 3), coefs, boxes, valid, 64)
+
+
+# (proto side, output side): the main configuration, the card tests' sizes
+# and one that is not a multiple of 4 (nor of 16)
+WINDOW_SIZES = [(136, 544), (34, 136), (20, 72), (19, 75)]
+
+
+@pytest.mark.parametrize('n,out_size', WINDOW_SIZES)
+def test_window_tables_match_brute_force(n, out_size):
+    lo, hi, _ = _gather_lerp(n, out_size, False)
+    tabs, tile_rows = _tables(n, n, out_size, torch.device('cpu'))
+    first_h, last_h, first_w, last_w = (t.numpy() for t in tabs[6:])
+    taps = np.stack([lo, hi], 1)                                    # [out, 2]
+    first = np.array([min([x for x in range(out_size) if taps[x].max() >= r], default=out_size)
+                      for r in range(n)])
+    last = np.array([max([x for x in range(out_size) if taps[x].min() <= r], default=-1)
+                     for r in range(n)])
+    for got in (first_h, first_w):
+        np.testing.assert_array_equal(got, first)
+    for got in (last_h, last_w):
+        np.testing.assert_array_equal(got, last)
+    # what the kernel relies on: a crop [r0, r1) reaches exactly the outputs
+    # [first[r0], last[r1 - 1]] (none where first > last)
+    for r0 in range(n):
+        for r1 in range(r0 + 1, n + 1):
+            reach = np.flatnonzero(((taps >= r0) & (taps < r1)).any(1))
+            if reach.size:
+                assert (reach[0], reach[-1]) == (first[r0], last[r1 - 1])
+            else:
+                assert first[r0] > last[r1 - 1]
+    # every band of BAND_ROWS output rows fits the m tile
+    assert tile_rows == max(hi[min(y + 31, out_size - 1)] - lo[y] + 1
+                            for y in range(0, out_size, 32))
+
+
+@pytest.mark.parametrize('do_crop', [True, False])
+@pytest.mark.parametrize('n,out_size', [(16, 64), (19, 75), (34, 136)])
+def test_output_window_holds_every_true_pixel(rng, n, out_size, do_crop):
+    proto, coefs, boxes, valid = _slate(rng, b=2, ph=n, pw=n, d=16)
+    # on the border, zero-area (inside, on the far corner, off the image),
+    # the full image and beyond it
+    boxes[0, :8] = [(0.0, 0.0, 0.3, 0.2), (0.8, 0.7, 1.0, 1.0), (0.5, 0.5, 0.5, 0.5),
+                    (1.0, 1.0, 1.0, 1.0), (1.2, -0.3, 1.5, -0.1), (0.0, 0.0, 1.0, 1.0),
+                    (-0.1, -0.1, 1.1, 1.1), (0.4, 0.0, 0.6, 1.0)]
+    valid[0, :8] = True
+    args = [torch.from_numpy(a) for a in (proto, coefs, boxes, valid)]
+    masks = mask_finalize_plain(*args, out_size, do_crop).numpy()
+    win = output_windows(args[2], args[3], n, n, out_size, do_crop).numpy()
+    assert masks[0, 5].any()                      # the full-image box has a mask
+    for b in range(2):
+        for d in range(16):
+            oy0, oy1, ox0, ox1 = win[b, d]
+            inside = np.zeros((out_size, out_size), bool)
+            inside[oy0:oy1, ox0:ox1] = True
+            assert not masks[b, d][~inside].any(), (b, d, win[b, d])
+    assert not win[~valid].any()                   # invalid slots: no window
+    if do_crop:
+        # padding keeps 1-2 proto pixels of a zero-area box, none off the image
+        for d in (2, 3):
+            assert 0 < win[0, d, 1] - win[0, d, 0] <= 3 * out_size // n + 1
+        assert not win[0, 4].any()
+        assert (win[0, 5] == (0, out_size, 0, out_size)).all()
+    else:
+        assert (win[valid] == (0, out_size, 0, out_size)).all()
