@@ -14,11 +14,11 @@ Phases, in order; any failure exits nonzero:
      shifted and unshifted (the whole-block kernel with the padded map's
      rowmask and once without), the two block kernels beside the times of
      what they replace, the MLP kernel beside a composition of PyTorch calls,
-     the window-attention and MLP kernels with their launch geometry and a
-     check that two launches agree bit for bit; the mask kernel with its
-     launch geometry on input (a), a fixture with crop, and (b), the same
-     without, and after phase 4 on (c), the res50 path's own slate, each
-     timed with events and in device time;
+     the window-attention, MLP and whole-block kernels with their launch
+     geometry and a check that two launches agree bit for bit; the mask
+     kernel with its launch geometry on input (a), a fixture with crop, and
+     (b), the same without, and after phase 4 on (c), the res50 path's own
+     slate, each timed with events and in device time;
   3b. the detect CLI (yolact_minimal_torch.detect.main) on two seeded PNGs of
      different shapes with a seeded res50_coco .pth, from a temporary working
      directory: both drawn images must come back at their input shapes;
@@ -136,7 +136,7 @@ GROUPS = (
     ('window_attention kernel', r'window_attention_(bf16|f32)_kernel'),
     ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel'),
     ('attn_block kernel', r'attn_block_bf16_kernel|attn_block_f32_kernel'),
-    ('swin_block kernel', r'swin_block_bf16_kernel|swin_block_f32_kernel'),
+    ('swin_block kernel', r'swin_block_\w*kernel'),
     ('layer norm', r'layer_norm|LayerNorm'),
     ('convolution / gemm', r'conv|gemm|xmma|cutlass|cudnn|sm90_|implicit|nvjet|cublas'),
     ('copy / cast / roll / pad', r'copy_kernel|roll_cuda|constant_pad|CatArray'),
@@ -714,11 +714,16 @@ def check_attn_block(dev, attention):
 def check_swin_block(dev, attention, mlp):
     """Kernel 6 at the four stage shapes: bf16 and float32, unshifted and
     shifted with the padded map's rowmask, and once with rowmask=None, against
-    the plain version; timed in bf16 on the shifted form, beside kernel 3 +
-    kernel 4 at the same stage from this run."""
+    the plain version; two bf16 launches must give the same bits. Timed in
+    bf16 on the shifted form (events, and device time under torch.profiler),
+    beside kernel 3 + kernel 4 at the same stage from this run, with the
+    launch geometry."""
     import torch
-    from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
+    from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
+                                                     kernel_geometry, swin_block,
+                                                     swin_block_plain)
     g = torch.Generator(device=dev).manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_stage = []
     for stage, (bnw, nw, c, heads, _) in enumerate(SWIN_STAGES):
         p = _block_inputs(dev, g, stage)
@@ -742,22 +747,46 @@ def check_swin_block(dev, attention, mlp):
         bf = torch.bfloat16
         args = block_args(p['x'].to(bf), p['bias'].to(bf), p['rowmask'][3], p['region'],
                           cast=lambda w: w.to(bf))
+        got = swin_block(*args)
+        _check(torch.equal(got, swin_block(*args)), f'swin_block stage {stage}: two launches differ')
+        del got
         ms = _time_ms(lambda: swin_block(*args))
+        device_ms = _device_ms(lambda: swin_block(*args))
         plain_ms = _time_ms(lambda: swin_block_plain(*args), warmup=1, iters=5)
         n_bytes = (2 * bnw * 49 * c + 12 * c * c + heads * 49 * 49) * 2 + \
             (13 * c + 2 * nw * 49) * 4
-        bound, by = _bound_ms(n_bytes, _block_ops(stage, True), BF16_PEAK)
+        flops = _block_ops(stage, True)
+        bound, by = _bound_ms(n_bytes, flops, BF16_PEAK)
         k3, k4 = attention['per_stage'][stage]['ms'], mlp['per_stage'][stage]['ms']
         print(f'kernel swin_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms '
-              f'({_block_ops(stage, True) / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, '
-              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); kernels 3 + 4 at this '
-              f'stage, this run: {k3:.4f} + {k4:.4f} = {k3 + k4:.4f} ms (without the cuBLAS qkv and '
-              f'proj, LayerNorms and adds between them); |kernel - plain| / max |plain|: bf16 '
-              f'{worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
-              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g})')
-        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, plain_ms=plain_ms,
-                              f32_ms=f32_ms, bound_ms=bound, bound_by=by, library_ms=None,
-                              window_attention_ms=k3, swin_mlp_ms=k4,
+              f'(device {device_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s against '
+              f'{PEAK_FLOPS[BF16_PEAK] / 1e12:.0f} at the bound), plain {plain_ms:.4f} ms, '
+              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); kernels 3 + 4 at '
+              f'this stage, this run: {k3:.4f} + {k4:.4f} = {k3 + k4:.4f} ms (without '
+              f'the cuBLAS qkv and proj, LayerNorms and adds between them); |kernel - plain| / '
+              f'max |plain|: bf16 {worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
+              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g}); two bf16 launches '
+              f'bit-equal')
+        geo = kernel_geometry(bnw, c, sms)
+        geometry = dict(grid=geo.blocks, tiles=geo.tiles, windows_per_tile=geo.windows_per_tile,
+                        rounds=geo.rounds, waves=geo.tiles / geo.blocks, sms=sms)
+        if c in KERNEL_SHAPES:
+            attrs = kernel_attributes(c)
+            geometry.update({k: v for k, v in attrs.items() if k != 'windows_per_tile'})
+            print(f'  geometry: tiled, grid {geo.blocks} blocks of {attrs["threads"]} threads on '
+                  f'{sms} SMs for {geo.tiles} tiles of G = {geo.windows_per_tile} windows '
+                  f'({attrs["column_split"]} warpgroups a window; {geo.rounds} rounds, '
+                  f'{geo.tiles / geo.blocks:.2f} tiles a block), '
+                  f'{attrs["stages"]} ring slots, {attrs["smem_bytes"]} B dynamic shared memory, '
+                  f'{attrs["registers"]} registers, {attrs["spill_bytes"]} B local (spill) a '
+                  f'thread')
+        else:
+            print(f'  geometry: one block of 256 threads a window, grid {geo.blocks} (the '
+                  f'window body this width keeps)')
+        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, f32_ms=f32_ms, bound_ms=bound, bound_by=by,
+                              library_ms=None, window_attention_ms=k3, swin_mlp_ms=k4,
+                              geometry=geometry,
                               max_abs_err=worst[bf][0],
                               max_abs_err_f32=worst[torch.float32][0]))
         del p, args, args32
@@ -768,10 +797,10 @@ def check_swin_block(dev, attention, mlp):
                 max_abs_err=top['max_abs_err'],
                 agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
                           f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes, unshifted, '
-                          f'shifted and without rowmask',
-                ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
-                bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
-                library_ms=None, per_stage=per_stage)
+                          f'shifted and without rowmask; two bf16 launches bit-equal',
+                ms=top['ms'], kernel_ms=top['ms'], device_ms=top['device_ms'],
+                plain_ms=top['plain_ms'], bound_ms=top['bound_ms'], bound_by=top['bound_by'],
+                peak=BF16_PEAK, library_ms=None, per_stage=per_stage)
 
 
 def _swin_launches(path, forwards=1):

@@ -12,7 +12,8 @@ from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
-from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
+from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
+                                                 shared_bytes, swin_block, swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
 from yolact_minimal_torch.ops.window_attention import (window_attention,
                                                        window_attention_plain)
@@ -264,6 +265,70 @@ def test_swin_block_kernel_matches_plain(card, dtype, tol, heads, nw, masked, pa
     _assert_close_rel(got, ref, tol)
     if padded:      # the rowmask matters on these inputs
         assert (swin_block_plain(p[0], None, *p[2:], heads).float() - ref.float()).abs().max() > 1e-3
+
+
+def _tile_case_params(card, rng, c, bnw, masked, padded, dtype=torch.bfloat16):
+    """swin_block's arguments for bnw windows of width c, every window an
+    image of its own (nW = 1): the rowmask of a 5x6 map padded to 7x7, the
+    region ids of the shifted 7x7 map, each or both left out."""
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(card)
+    heads = c // 32
+    region = torch.from_numpy(shifted_window_regions(7, 7)).to(card) if masked else None
+    rowmask = dev(pad_rowmask(5, 6, 7, 7, 3 if masked else 0)) if padded else None
+    return (dev(rng.randn(bnw, 49, c)).to(dtype), rowmask,
+            dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
+            dev(rng.randn(3 * c, c) * c ** -0.5).to(dtype), dev(rng.randn(3 * c) * 0.05),
+            dev(rng.randn(heads, 49, 49) * 0.1).to(dtype), region,
+            dev(rng.randn(c, c) * c ** -0.5).to(dtype), dev(rng.randn(c) * 0.05),
+            dev(rng.randn(c) * 0.1 + 1.0), dev(rng.randn(c) * 0.1),
+            dev(rng.randn(4 * c, c) * c ** -0.5).to(dtype), dev(rng.randn(4 * c) * 0.05),
+            dev(rng.randn(c, 4 * c) * (4 * c) ** -0.5).to(dtype), dev(rng.randn(c) * 0.05))
+
+
+# Window counts against the tiled bf16 kernel's tiles of G windows
+# (KERNEL_SHAPES; G = 1 where the body is one block a window) and its grid of
+# one block a multiprocessor (132 on an H100): one window,
+# G - 1 and G + 1 (partial last tiles), a count whose tiles leave blocks idle
+# and one whose tiles take a second round with a partial last tile.
+TILE_CASES = [(c, bnw) for c in (96, 192, 384, 768)
+              for g in (KERNEL_SHAPES[c][0] if c in KERNEL_SHAPES else 1,)
+              for bnw in sorted({1, max(g - 1, 1), g + 1, 100 * g - 1, 133 * g + 1})]
+
+
+@pytest.mark.parametrize('c,bnw', TILE_CASES)
+@pytest.mark.parametrize('masked,padded', [(False, False), (True, False), (False, True),
+                                           (True, True)])
+def test_swin_block_kernel_matches_plain_on_partial_tiles(card, c, bnw, masked, padded):
+    p = _tile_case_params(card, np.random.RandomState(4), c, bnw, masked, padded)
+    before = swin_block.launches
+    got = swin_block(*p, c // 32)
+    torch.cuda.synchronize()
+    assert swin_block.launches == before + 1
+    ref = swin_block_plain(*p, c // 32)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (bnw, 49, c)
+    assert torch.isfinite(got.float()).all()
+    _assert_close_rel(got, ref, 2.0 ** -7)
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+def test_swin_block_kernel_is_deterministic(card, c):
+    # a fixed tile order and no atomics: two launches, the same bits
+    p = _tile_case_params(card, np.random.RandomState(5), c, 301, True, True)
+    first = swin_block(*p, c // 32)
+    second = swin_block(*p, c // 32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize('c', sorted(KERNEL_SHAPES))
+def test_swin_block_kernel_is_built_as_the_geometry_assumes(card, c):
+    attrs = kernel_attributes(c)
+    g, cs, stages = KERNEL_SHAPES[c][:3]
+    assert (attrs['windows_per_tile'], attrs['column_split'], attrs['stages']) == (g, cs, stages)
+    assert attrs['threads'] == 128 * g * cs
+    assert attrs['smem_bytes'] == shared_bytes(c) <= 232448
+    assert 0 < attrs['registers'] * attrs['threads'] <= 65536
 
 
 @pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0]),

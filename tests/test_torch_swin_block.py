@@ -9,7 +9,9 @@ import torch
 from yolact_minimal_tpu.models import swin as jax_swin
 from yolact_minimal_tpu.ops.swin_block import _block_xla, swin_block_fused
 from yolact_minimal_torch.ops.attn_block import attn_block_plain
-from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
+from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, SHARED_MEMORY_LIMIT,
+                                                 WEIGHT_BOX_ROWS, kernel_geometry,
+                                                 shared_bytes, swin_block, swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import mlp_block_plain
 
 torch.set_num_threads(1)
@@ -145,3 +147,57 @@ def test_wrapper_runs_plain_on_cpu_and_checks_its_inputs():
         swin_block(*swapped(6, args[6].bfloat16()), heads)
     with pytest.raises(ValueError, match='unsupported device'):
         swin_block(*(None if t is None else t.to('meta') for t in args), heads)
+
+
+# Window counts for the bf16 kernel's launch: small ones against tiles of 1-3
+# windows, counts either side of a 132-multiprocessor grid, and the four
+# stages' counts of swin_tiny at 544, batch 16 (6400, 1600, 400, 144).
+GEOMETRY_BNW = [1, 2, 3, 4, 5, 131, 132, 133, 264, 265, 395, 397, 144, 400, 1600, 6400]
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+@pytest.mark.parametrize('bnw', GEOMETRY_BNW)
+@pytest.mark.parametrize('sms', [132, 7])
+def test_kernel_geometry_walks_every_window_once(c, bnw, sms):
+    geo = kernel_geometry(bnw, c, sms)
+    g = KERNEL_SHAPES[c][0] if c in KERNEL_SHAPES else 1
+    assert geo.windows_per_tile == g and geo.tiles == -(-bnw // g)
+    if c in KERNEL_SHAPES:      # persistent: one block a multiprocessor at most
+        assert 1 <= geo.blocks <= min(sms, geo.tiles)
+    else:                       # one block a window
+        assert geo.blocks == geo.tiles == bnw and geo.rounds == 1
+    walks = [geo.windows(b) for b in range(geo.blocks)]
+    # tiles of consecutive windows, G each but the last
+    assert all(len(r) == g for walk in walks for r in walk if r.stop < bnw)
+    seen = sorted(w for walk in walks for r in walk for w in r)
+    assert seen == list(range(bnw))
+    # the rounds as stated: the most tiles a block walks, every block busy
+    # in all rounds but the last
+    assert geo.rounds == -(-geo.tiles // geo.blocks) == max(len(walk) for walk in walks)
+    assert min(len(walk) for walk in walks) >= geo.rounds - 1
+
+
+@pytest.mark.parametrize('c', sorted(KERNEL_SHAPES))
+def test_kernel_shape_respects_its_limits(c):
+    """The limits csrc/swin_block.cu's header states for each tiled width: per
+    window the LN tile [64, C], the attention-output tile and its q, k, v
+    tiles with h [49, C] float32 over them and, with the columns split, a
+    second set of q, k, v tiles and a gelu tile; uses of whole k-blocks; TMA
+    boxes of at most 256 rows; a ring of at least 3 slots; shared memory
+    within an H100 block's 227 KB; a warpgroup's columns in pieces of 96."""
+    g, cs, stages, kq, k1 = KERNEL_SHAPES[c]
+    kb = -(-c // 64)
+    tile = kb * 64 * 128
+    assert 1 <= g * cs <= 4 and stages >= 3 and c % (96 * cs) == 0
+    assert kb % kq == 0 and kb % k1 == 0
+    assert max(WEIGHT_BOX_ROWS) <= 256 and 96 * cs <= 256
+    window = max(2 * tile + (2 if cs > 1 else 1) * 3 * 64 * 64, 49 * c * 4 + tile) + \
+        (64 * 128 if cs > 1 else 0)
+    slot = max(96 * kq, 64 * k1, 96 * cs) * 128
+    assert g * window + stages * slot < shared_bytes(c) <= SHARED_MEMORY_LIMIT
+
+
+def test_kernel_geometry_rejects_bad_arguments():
+    for args in ((0, 96, 132), (10, 64, 132), (10, 96, 0)):
+        with pytest.raises(ValueError, match='kernel_geometry'):
+            kernel_geometry(*args)

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
 // tile loads, proxy fences, named barriers, shared-memory matrix descriptors
 // of the 128-byte swizzled layout, and the warpgroup products (wgmma) the
-// swin MLP kernel issues: m64nNk16, bf16 operands, float32 accumulators, B
-// (and A where named _ss) from shared memory, K-major.
+// swin MLP and whole-block kernels issue: m64nNk16, bf16 operands, float32
+// accumulators, B (and A where named _ss) from shared memory, K-major.
 //
 // Layout every descriptor here names: a tile of rows of 64 bf16 (128 bytes),
 // 8-row groups 1024 bytes apart, the 16-byte chunk c of row r stored at chunk
@@ -39,6 +39,21 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// Host: a tensor map of a row-major bf16 [outer, inner] matrix in boxes of
+// [box_outer, 64], 128-byte swizzled (the layout sw128_desc names); false
+// where the driver has no encoder or the encoder refuses.
+inline bool map_sw128(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -86,6 +101,15 @@ __device__ __forceinline__ void fence_mbar_init() {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// mbar_arrive where `pred` holds; a predicated instruction, not a branch, so
+// that no wgmma in flight meets a divergent path.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %1, 0;\n@q mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(smem_addr(bar)), "r"(static_cast<int>(pred))
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -155,6 +179,33 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // 16 w .. 16 w + 15; d[4 j + i] is row 16 w + lane / 4 + 8 (i / 2), column
 // 8 j + 2 (lane % 4) + i % 2. A from registers takes, per warp, the A
 // fragment of mma.sync m16n8k16 for its 16 rows.
+
+// d[64 x 48] (+)= A[64 x 16] B[16 x 48], A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 96] (+)= A[64 x 16] B[16 x 96], A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // d[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B from shared memory (K-major).
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {

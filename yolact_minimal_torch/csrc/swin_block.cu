@@ -9,49 +9,762 @@
 // norm1, so such a token enters the attention as 0, its qkv is bqkv, and it
 // attends and is attended to like any other; its output row is computed and
 // the caller crops it. Window w uses row w % nW of rowmask and of the region
-// ids. Between x and y nothing reaches device memory except, at C = 192 and
-// 768, h.
+// ids.
 //
 // Rounding places (T is float or bf16), as in the JAX kernel: LN1 in float32
-// (eps 1e-5), times rowmask, rounded to T; the attention half as in
-// attn_block.cu, but proj is not rounded: h = x + proj + bproj stays float32.
-// LN2 of that float32 h, rounded to T; fc1 accumulates in float32, + b1 and
-// gelu (erff) in float32, rounded to T once; fc2 accumulates in float32,
-// h + fc2 + b2 in float32, rounded to T once. Weights are in T in nn.Linear's
-// [out, in] layout; LayerNorm parameters and the four bias vectors float32.
+// (eps 1e-5), times rowmask, rounded to T; qkv accumulates in float32, + bqkv,
+// rounded; q * scale rounded (the scale rounded first); scores, bias and the
+// -100 region fill in float32, the softmax rounded, p v accumulated in float32
+// and rounded once per head; proj accumulates in float32 and h = x + proj +
+// bproj stays float32. LN2 of that float32 h, rounded to T; fc1 accumulates
+// in float32, + b1 and gelu (erff) in float32, rounded to T once; fc2
+// accumulates in float32, h + fc2 + b2 in float32, rounded to T once. Weights
+// are in T in nn.Linear's [out, in] layout; LayerNorm parameters and the four
+// bias vectors float32.
 //
-// What bounds it on an H100: operations, 24 C^2 + 4 * 49 C a row against 4 C
-// bytes in bf16. Design: one block of 256 threads per window; the attention
-// half is attn_block.cu's (swin_common.cuh), the MLP half is swin_mlp.cu's
-// walk over the hidden units on the window's rows, whose staging buffers
-// reuse the attention half's shared memory.
-// - The float32 h [49, C] lives in shared memory at C = 96 and 384. At C = 768
-//   (147 KB) it does not fit beside LN(x), the attention output and the
-//   staging buffers, and goes through a float32 scratch tensor in device
-//   memory that the block writes and reads back at once (L2). C = 192 takes
-//   the scratch too: without h a block needs 105 KB, so two share an SM.
-// - The MLP walk takes the 64 padded rows in one pass; at C = 768, where 64
-//   rows of fc2 accumulators do not fit the registers, in two passes of 32,
-//   which reads k1 and k2 twice.
-// - Every block reads all four weight matrices from L2 (14 MB at C = 768,
-//   twice for k1 and k2, for each of 144 windows): later work.
-// - float32: the CUDA cores, sums in index order, no TF32; `out` doubles as
-//   the scratch for the attention output and for h.
+// The bound is operations, 24 C^2 + 4 * 49 C a row (0.072-0.102 ms at 989
+// TFLOP/s at the four stages of swin_tiny at 544, batch 16), against 4 C bytes
+// of rows. Two bf16 bodies, chosen at compile time by width (swin_block()).
+//
+// Tiled (C = 96, 192, 384), for the H100 (sm_90a):
+// - A block takes a tile of G consecutive windows; CS warpgroups share a
+//   window, each taking 1 / CS of every product's columns. Each window has
+//   its own shared memory: the LN tile [64, C] (128-byte swizzled), the
+//   attention-output tile, q / k / v tiles of 64-byte rows (two sets where
+//   CS = 2, so that head h's attention, on warpgroup h % 2, runs beside the
+//   other warpgroup's next qkv product), h [49, C] float32 over the last two
+//   once they are free, and where CS = 2 the gelu tile fc2 reads. The windows
+//   of a tile meet only in the ring: no block-wide barrier. Blocks are
+//   persistent, one a multiprocessor (ops/swin_block.py::kernel_geometry),
+//   and walk the tiles in a fixed order: no atomics, the same bits every run.
+//     C    G  CS  threads  ring        qkv / fc1 k-blocks a use  shared memory
+//     96   3  1   384      3 x 24 KB   2 / 2                     209968 B
+//     192  2  1   256      4 x 24 KB   1 / 3                     224256 B
+//     384  1  2   256      4 x 24 KB   2 / 3                     232448 B
+// - All four products on wgmma (m64nNk16, bf16 in, float32 accumulators, A
+//   from the swizzled tiles of sm90.cuh): qkv head by head (one [C, 96] slice
+//   gives the head's q | k | v), proj, and over 64-unit hidden chunks fc1 and
+//   fc2; with CS = 1 the fc1 accumulators (+ b1, gelu, rounded) are fc2's A
+//   operand in registers. Each accumulator is set to zero just before its
+//   product: left undefined, ptxas keeps it live from the kernel's entry and,
+//   at C >= 192, runs out of registers and serialises every wgmma.
+// - Weight slices by TMA (sm90::map_sw128, tensor maps encoded per launch)
+//   through a ring with full and empty mbarriers; a use carries 1-3 k-blocks
+//   of one product for all of a tile's windows (a head's q | k | v rows, a
+//   chunk's k1 rows, a 96-column piece of every warpgroup's proj or k2 rows):
+//   each use costs a round trip through the ring, so fewer, larger uses pay.
+//   Thread 0 keeps the next uses in flight; a warp releases a use once the
+//   product after it has waited for it (wgmma_wait<1>, releases predicated,
+//   not branched, so that no product in flight meets a divergent path).
+//   Weight reads from L2 at stage 0: 0.47 GB a launch (one block a window:
+//   1.42 GB).
+// - Attention per (window, head) on mma.sync, window_attention.cu's scheme:
+//   warp r owns query rows 16 r .. 16 r + 15, keys 49-63 are -inf, p stays in
+//   registers as p v's A operand, region ids compared through shuffles, the
+//   head's bias loaded into registers under the qkv product. Rows 49-63 of
+//   the q / k / v tiles are written as zeros, so 0 * v never meets a stale
+//   inf; the products' output rows 49-63 are never stored.
+// - What bounds it (clock64 phase counters of warpgroup 0 in a throwaway
+//   build, NVIDIA H100 80GB HBM3 at 700 W; PERF.md): at C = 96 the CUDA-core
+//   work (gelu's erff 30% of a warpgroup's time, the two LayerNorms 17%,
+//   attention 11%; the products 27%); at C = 192 and 384 the ring's round
+//   trips (fc1 25% and 38%, qkv 15% and 19%: 1500-3300 cycles a use, against
+//   a few hundred of tensor-core work in it). 49 live rows fill each 64-row
+//   product (77%); at C = 384, 400 tiles take 4 rounds on 132 SMs.
+//
+// One block a window (C = 768): see the section below. A tiled form does not
+// fit there: a window's proj and fc2 accumulators ([64, 768] float32) over 4
+// warpgroups, its LN and attention-output tiles (2 x 84 KB) and a ring of
+// 4 x 96-row slices exceed the registers and the 227 KB of shared memory.
+//
+// float32: one block of 256 threads a window on the CUDA cores, sums in index
+// order, no TF32, so that a float32 run on the card can be held to a CPU run;
+// `out` doubles as the scratch for the attention output and for h.
+#include "sm90.cuh"
 #include "swin_common.cuh"
 
 namespace {
 
 using namespace swin;
 
-// Where the float32 h [49, C] lives between the halves: in shared memory at
-// C = 96 and 384; through the scratch tensor at C = 768, where it does not
-// fit, and at C = 192, where leaving it out lets two blocks share an SM.
+// ------------------------------------------------ bf16, Hopper (wgmma) -----
+
+// Per width: G windows a tile, CS warpgroups a window (each takes 1 / CS of
+// every product's columns), STAGES ring slots, KQ and K1 k-blocks a use of
+// the qkv and the fc1 product.
+template <int G_, int CS_, int STAGES_, int KQ_, int K1_> struct BlockShapeOf {
+  static constexpr int G = G_, CS = CS_, STAGES = STAGES_, KQ = KQ_, K1 = K1_;
+};
+template <int C> struct BlockShape;
+template <> struct BlockShape<96> : BlockShapeOf<3, 1, 3, 2, 2> {};
+template <> struct BlockShape<192> : BlockShapeOf<2, 1, 4, 1, 3> {};
+template <> struct BlockShape<384> : BlockShapeOf<1, 2, 4, 2, 3> {};
+
+constexpr int align1k(int b) { return (b + 1023) / 1024 * 1024; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int C> struct BlockPlan {
+  static constexpr int G = BlockShape<C>::G, CS = BlockShape<C>::CS;
+  static constexpr int STAGES = BlockShape<C>::STAGES;
+  static constexpr int KQ = BlockShape<C>::KQ, K1 = BlockShape<C>::K1;
+  static constexpr int THREADS = G * CS * 128;
+  static constexpr int HEADS = C / HD;
+  static constexpr int KB = (C + 63) / 64;           // 64-wide k-blocks over C
+  static constexpr int BH = 64;                      // hidden units a chunk
+  static constexpr int CHUNKS = 4 * C / BH;
+  static constexpr int NQ = 96 / CS;                 // q | k | v columns of a warpgroup
+  static constexpr int N1 = BH / CS;                 // fc1 columns of a warpgroup
+  static constexpr int N2 = C / CS;                  // proj / fc2 columns of a warpgroup
+  static constexpr int NP = N2 / 96;                 // ... in pieces of 96
+  // A use of the ring holds 64-wide k-blocks of one product for all CS
+  // warpgroups: KQ of a head's q | k | v rows of wqkv (96), one of piece q of
+  // every warpgroup's proj or fc2 columns (CS x 96), or K1 of a chunk's k1
+  // rows (64).
+  static constexpr int SLOT = cmax(cmax(96 * KQ, 64 * K1), CS * 96) * 128;
+  static constexpr int PIECE_BYTES = CS * 96 * 128, K1_BYTES = BH * 128;
+  // uses a tile, in order: per head UQ; proj KB x NP; per chunk U1 (fc1)
+  // then NP (fc2)
+  static constexpr int UQ = KB / KQ, U1 = KB / K1;
+  static constexpr int U_QKV = HEADS * UQ, U_PROJ = KB * NP, U_CHUNK = U1 + NP;
+  static constexpr int USES = U_QKV + U_PROJ + CHUNKS * U_CHUNK;
+  static constexpr int TB = 64 * 128;                // one k-block of the LN / attn-out tiles
+  static constexpr int QT = 64 * 64;                 // one of the q, k, v tiles
+  // a window's shared memory, bytes: the LN tile, the attention-output tile
+  // and QB sets of q, k, v tiles with h [49, C] float32 over them, and where
+  // CS > 1 the gelu tile [64, BH] that fc2 reads. With CS > 1 head h's q, k,
+  // v go to set h % 2 and its attention to warpgroup h % CS, so that one
+  // warpgroup's attention runs beside the other's next qkv product.
+  static constexpr int QB = CS > 1 ? 2 : 1;
+  static constexpr int LN = 0;
+  static constexpr int AO = LN + KB * TB;
+  static constexpr int QKV = AO + KB * TB;
+  static constexpr int USED = cmax(QKV + QB * 3 * QT, AO + N * C * 4);
+  static constexpr int GT = align1k(USED);
+  static constexpr int WIN_BYTES = GT + (CS > 1 ? BH * 128 : 0);
+  static constexpr int RING = G * WIN_BYTES;
+  // the ring's barriers, full[STAGES] then empty[STAGES]: in window 0's unused
+  // tail where it has room for them, else after the ring
+  static constexpr bool BAR_IN_TAIL = GT - USED >= 2 * STAGES * 8;
+  static constexpr int BAR = BAR_IN_TAIL ? USED : RING + STAGES * SLOT;
+  static constexpr int SMEM =
+      (BAR_IN_TAIL ? RING + STAGES * SLOT : BAR + 2 * STAGES * 8) + 1024;   // + aligning the base
+  static_assert(C % 96 == 0 && N2 % 96 == 0 && NQ % 8 == 0 && N1 % 8 == 0, "pieces");
+  static_assert(STAGES >= 3 && KB % KQ == 0 && KB % K1 == 0, "ring");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// V consecutive elements of T from src (8-byte aligned), as float32.
+template <typename T, int V>
+__device__ __forceinline__ void load_run(const T* src, float (&v)[V]);
+template <int V>
+__device__ __forceinline__ void load_run(const bf16* src, float (&v)[V]) {
+  static_assert(V % 4 == 0, "runs of 4");
+#pragma unroll
+  for (int i = 0; i < V; i += 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src + i);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[i] = a.x;
+    v[i + 1] = a.y;
+    v[i + 2] = b.x;
+    v[i + 3] = b.y;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_run(const float* src, float (&v)[V]) {
+  static_assert(V % 4 == 0, "runs of 4");
+#pragma unroll
+  for (int i = 0; i < V; i += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(src + i);
+    v[i] = u.x;
+    v[i + 1] = u.y;
+    v[i + 2] = u.z;
+    v[i + 3] = u.w;
+  }
+}
+
+// The warps of one window (NW of them, the window's warp wl): LayerNorm of
+// the window's 49 rows of src (row stride C), times mul(r), rounded to bf16
+// into row r of a swizzled tile of 64-wide blocks TB bytes apart. A warp
+// takes SUB rows at once, L = 32 / SUB lanes a row and V = 12 consecutive
+// elements a lane (one vector load run), so that a row's sums need log2 L
+// shuffles; it loads two passes before it reduces either. Statistics in
+// float32 as layer_norm_row computes them (mean, then the mean square of
+// the differences), summed in another order.
+template <typename TIn, int C, int NW, typename Mul>
+__device__ __forceinline__ void ln_window(const TIn* src, const float* __restrict__ lns,
+                                          const float* __restrict__ lnb, Mul mul,
+                                          unsigned char* tile, int wl) {
+  constexpr int V = 12, L = C / V, SUB = 32 / L;
+  constexpr int STEP = NW * SUB, PASSES = (N + STEP - 1) / STEP, RB = 2;
+  constexpr int TB = 64 * 128;
+  static_assert(C % V == 0 && 32 % L == 0 && (L & (L - 1)) == 0, "lanes a row");
+  const int lane = threadIdx.x % 32, c0 = (lane % L) * V;
+  float gs[V], gb[V];                             // this lane's LayerNorm parameters
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    gs[i] = lns[c0 + i];
+    gb[i] = lnb[c0 + i];
+  }
+#pragma unroll 1
+  for (int p0 = 0; p0 < PASSES; p0 += RB) {
+    float v[RB][V];
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = (p0 + k) * STEP + wl * SUB + lane / L;
+      if (r < N) {
+        load_run(src + r * C + c0, v[k]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[k][i] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RB; ++k) {
+      const int r = (p0 + k) * STEP + wl * SUB + lane / L;
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum += v[k][i];
+#pragma unroll
+      for (int o = L / 2; o > 0; o /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float mu = sum / C;
+      float sq = 0.0f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        v[k][i] -= mu;
+        sq += v[k][i] * v[k][i];
+      }
+#pragma unroll
+      for (int o = L / 2; o > 0; o /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      const float inv = 1.0f / sqrtf(sq / C + LN_EPS);
+      const float m = mul(r);
+      if (r < N) {
+#pragma unroll
+        for (int i = 0; i < V; i += 2) {
+          const int c = c0 + i;
+          *reinterpret_cast<uint32_t*>(tile + (c / 64) * TB + sm90::sw128_offset(r, c % 64)) =
+              pack_bf16((v[k][i] * inv * gs[i] + gb[i]) * m,
+                        (v[k][i + 1] * inv * gs[i + 1] + gb[i + 1]) * m);
+        }
+      }
+    }
+  }
+}
+
+// The bias [49, 49] of one head for a thread of warp wq of a warpgroup:
+// bz[nt][hi] = (row 16 wq + lane / 4 + 8 hi; keys 8 nt + 2 (lane % 4), + 1)
+// as a bf16 pair, zero past the window.
+__device__ __forceinline__ void head_bias(const bf16* __restrict__ hb, int wq,
+                                          uint32_t (&bz)[7][2]) {
+  const int lane = threadIdx.x % 32, row0 = wq * 16 + lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 8 * hi, key = 8 * nt + 2 * t;
+      const float b0 = row < N && key < N ? to_f<bf16>(hb[row * N + key]) : 0.0f;
+      const float b1 = row < N && key + 1 < N ? to_f<bf16>(hb[row * N + key + 1]) : 0.0f;
+      bz[nt][hi] = pack_bf16(b0, b1);
+    }
+}
+
+// One warp (wq of the four of a warpgroup): query rows 16 wq .. 16 wq + 15
+// of the window whose 49 rows start at row `rb` of the q, k, v tiles (qt
+// bytes apart, 64-byte swizzled rows), for one head: softmax(q k^T + bias +
+// mask) v (q already scaled), rounded to bf16, into columns col0 .. col0 +
+// 31 of the swizzled attention-output tile (64-wide blocks tb bytes apart);
+// bz: the head's bias of this thread's scores (head_bias); rl, rh: the
+// window's region ids (token j in lane j % 32 of rl for j < 32, else rh),
+// masked: whether to compare them.
+__device__ __forceinline__ void attend_rows(const unsigned char* tq, int qt, int rb, int wq,
+                                            const uint32_t (&bz)[7][2], int rl, int rh,
+                                            bool masked, unsigned char* ao, int tb, int col0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row0 = wq * 16 + g;                  // this thread's rows: row0, row0 + 8
+  const unsigned char* tk = tq + qt;
+  const unsigned char* tv = tq + 2 * qt;
+
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    ldmatrix_x4(qa[ks], reinterpret_cast<const bf16*>(
+                            tq + sm90::sw64_offset(rb + wq * 16 + lane % 16,
+                                                   16 * ks + 8 * (lane / 16))));
+  float sacc[7][4];
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t b[4];
+      ldmatrix_x4(b, reinterpret_cast<const bf16*>(
+                         tk + sm90::sw64_offset(rb + kt * 16 + lane % 8 + 8 * (lane / 16),
+                                                16 * ks + 8 * ((lane / 8) % 2))));
+      mma_bf16(sacc[2 * kt], qa[ks], b[0], b[1]);
+      if (2 * kt + 1 < 7) mma_bf16(sacc[2 * kt + 1], qa[ks], b[2], b[3]);
+    }
+
+  // which scores pair tokens of different regions: bit nt * 4 + i
+  uint32_t differ = 0;
+  if (masked) {
+    int rrow[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      rrow[hi] = __shfl_sync(0xffffffffu, wq < 2 ? rl : rh, min(row0 + 8 * hi, N - 1) % 32);
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kr = __shfl_sync(0xffffffffu, nt < 4 ? rl : rh,
+                                   min(8 * nt + 2 * t + j, N - 1) % 32);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+          if (kr != rrow[hi]) differ |= 1u << (nt * 4 + hi * 2 + j);
+      }
+  }
+
+  // + bias + mask, -inf past the window; row softmax over the four lanes
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = 8 * nt + 2 * t + i % 2;
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bz[nt][i / 2]));
+      float sc = sacc[nt][i] + (i % 2 ? b.y : b.x);
+      sc += (differ >> (nt * 4 + i)) & 1u ? NEG : 0.0f;
+      sc = key < N ? sc : -INFINITY;
+      sacc[nt][i] = sc;
+      m[i / 2] = fmaxf(m[i / 2], sc);
+    }
+  float l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 1));
+    m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 2));
+  }
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sacc[nt][i] = __expf(sacc[nt][i] - m[i / 2]);
+      l[i / 2] += sacc[nt][i];
+    }
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+    l[hi] = 1.0f / l[hi];
+  }
+
+  // p v: p (rounded to bf16) as the A operand, keys in k-steps of 16
+  float o[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nt][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[4];
+    a[0] = pack_bf16(sacc[2 * ks][0] * l[0], sacc[2 * ks][1] * l[0]);
+    a[1] = pack_bf16(sacc[2 * ks][2] * l[1], sacc[2 * ks][3] * l[1]);
+    if (2 * ks + 1 < 7) {
+      a[2] = pack_bf16(sacc[2 * ks + 1][0] * l[0], sacc[2 * ks + 1][1] * l[0]);
+      a[3] = pack_bf16(sacc[2 * ks + 1][2] * l[1], sacc[2 * ks + 1][3] * l[1]);
+    } else {
+      a[2] = a[3] = 0u;
+    }
+#pragma unroll
+    for (int dp = 0; dp < 2; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(
+                               tv + sm90::sw64_offset(rb + 16 * ks + lane % 16,
+                                                      16 * dp + 8 * (lane / 16))));
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+  // rounded once; rows past the window are not stored
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 8 * hi, col = col0 + 8 * nt + 2 * t;
+      if (row < N)
+        *reinterpret_cast<uint32_t*>(ao + (col / 64) * tb + sm90::sw128_offset(rb + row, col % 64)) =
+            pack_bf16(o[nt][2 * hi], o[nt][2 * hi + 1]);
+    }
+}
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ... of G windows;
+// the CS warpgroups g CS .. g CS + CS - 1 take window g of a tile, in its own
+// shared memory, and meet the other windows' warpgroups only in the ring:
+// every warp consumes all BlockPlan<C>::USES weight slices of a tile (use u
+// lies in slot u % STAGES), and thread 0 refills a slot, STAGES - 1 uses
+// ahead, once every warp has released it. Warpgroups without a window (the
+// last tile) run the products on what their tiles hold and store nothing.
+template <int C>
+__global__ void __launch_bounds__(BlockPlan<C>::THREADS, 1)
+swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
+                            const __grid_constant__ CUtensorMap tm_proj,
+                            const __grid_constant__ CUtensorMap tm_k1,
+                            const __grid_constant__ CUtensorMap tm_k2,
+                            const bf16* __restrict__ x, const float* __restrict__ rowmask,
+                            const float* __restrict__ ln1s, const float* __restrict__ ln1b,
+                            const float* __restrict__ bqkv, const bf16* __restrict__ bias,
+                            const int* __restrict__ region, const float* __restrict__ bproj,
+                            const float* __restrict__ ln2s, const float* __restrict__ ln2b,
+                            const float* __restrict__ b1, const float* __restrict__ b2,
+                            bf16* __restrict__ out, int bnw, int nw) {
+  using P = BlockPlan<C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + P::STAGES;
+  const int tiles = (bnw + P::G - 1) / P::G;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, P::THREADS / 32);   // every warp releases every slot
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Thread 0: start the copies of every use before `upto`; use v waits for
+  // the release of use v - STAGES.
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto; ++issued) {
+      if (blockIdx.x + (issued / P::USES) * gridDim.x >= tiles) return;
+      const int s = issued % P::STAGES;
+      sm90::mbar_wait(empty + s, ((issued / P::STAGES) & 1) ^ 1);
+      const uint32_t dst = base + P::RING + s * P::SLOT;
+      int e = issued % P::USES;
+      if (e < P::U_QKV) {               // head e / UQ: its q, k, v rows, KQ k-blocks
+        const int h = e / P::UQ, k0 = (e % P::UQ) * P::KQ * 64;
+        sm90::mbar_expect_tx(full + s, P::KQ * 96 * 128);
+        for (int u = 0; u < P::KQ; ++u)
+          for (int j = 0; j < 3; ++j)
+            sm90::tma_load_2d(dst + (u * 3 + j) * HD * 128, &tm_qkv, k0 + u * 64,
+                              j * C + h * HD, full + s);
+        continue;
+      }
+      e -= P::U_QKV;
+      if (e < P::U_PROJ) {              // proj: k-block e / NP, piece e % NP of each warpgroup
+        sm90::mbar_expect_tx(full + s, P::PIECE_BYTES);
+        for (int c = 0; c < P::CS; ++c)
+          sm90::tma_load_2d(dst + c * 96 * 128, &tm_proj, (e / P::NP) * 64,
+                            c * P::N2 + (e % P::NP) * 96, full + s);
+        continue;
+      }
+      e -= P::U_PROJ;
+      const int h0 = (e / P::U_CHUNK) * P::BH, r = e % P::U_CHUNK;
+      if (r < P::U1) {                  // fc1: K1 k-blocks of the chunk's k1 rows
+        sm90::mbar_expect_tx(full + s, P::K1 * P::K1_BYTES);
+        for (int u = 0; u < P::K1; ++u)
+          sm90::tma_load_2d(dst + u * P::K1_BYTES, &tm_k1, (r * P::K1 + u) * 64, h0, full + s);
+      } else {                          // fc2: piece r - U1 of each warpgroup's k2 rows
+        sm90::mbar_expect_tx(full + s, P::PIECE_BYTES);
+        for (int c = 0; c < P::CS; ++c)
+          sm90::tma_load_2d(dst + c * 96 * 128, &tm_k2, h0, c * P::N2 + (r - P::U1) * 96,
+                            full + s);
+      }
+    }
+  };
+
+  const int wg = threadIdx.x / 128, g = wg / P::CS, cs = wg % P::CS;
+  const int warp = threadIdx.x / 32, wq = warp % 4, wl = warp % (4 * P::CS);
+  const int lane = threadIdx.x % 32;
+  const int er = 16 * wq + lane / 4, ec = 2 * (lane % 4);    // accumulator row and column
+  unsigned char* my = smem + g * P::WIN_BYTES;               // this window's tiles
+  const uint32_t mine = base + g * P::WIN_BYTES;
+  const uint64_t da_ln = sm90::sw128_desc(mine + P::LN);
+  const uint64_t da_ao = sm90::sw128_desc(mine + P::AO);
+  float* hw = reinterpret_cast<float*>(my + P::AO);          // h [49, C], over AO and q, k, v
+  const float scale = round_to<bf16>(QK_SCALE);
+  // the window's warpgroups meet here
+  auto sync_wg = [g] { sm90::named_barrier(1 + g, 128 * P::CS); };
+  // Uses walked, and the last whose products may still be in flight (-1:
+  // none). A warp releases a use once the products issued after it have
+  // waited for it (wgmma_wait<1>), so a use's products run under the next
+  // use's wait; thread 0 tops the ring up to STAGES - 1 uses ahead, which
+  // waits only for releases that every warp makes before it can wait.
+  int use = 0, pending = -1;
+  // Wait for use `use` to land; returns its slot's shared address.
+  auto acquire = [&]() {
+    if (threadIdx.x == 0) issue_upto(use + P::STAGES - 1);
+    __syncwarp();
+    sm90::mbar_wait(full + use % P::STAGES, (use / P::STAGES) & 1);
+    return base + P::RING + (use % P::STAGES) * P::SLOT;
+  };
+  // After this warpgroup's products on use `use` are committed.
+  auto retire = [&]() {
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::mbar_arrive_if(empty + (pending + P::STAGES) % P::STAGES, lane == 0 && pending >= 0);
+    pending = use++;
+  };
+  // Every product done, every use released.
+  auto drain = [&]() {
+    sm90::wgmma_wait<0>();
+    sm90::mbar_arrive_if(empty + (pending + P::STAGES) % P::STAGES, lane == 0 && pending >= 0);
+    pending = -1;
+  };
+
+  if (threadIdx.x == 0) issue_upto(P::STAGES - 1);  // the first slices land under LN1
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int w = t * P::G + g;
+    const bool has = w < bnw;
+    const bf16* xw = x + static_cast<size_t>(has ? w : 0) * N * C;
+    sync_wg();                          // this warpgroup's last tile is done with its tiles
+
+    // LN1 * rowmask into the LN tile (rows 49-63 are never stored: their
+    // output rows are not either); the window's region ids, token j in lane
+    // j % 32 of rl (j < 32) or rh
+    int rl = 0, rh = 0;
+    if (has) {
+      // the window's rowmask: token j's in lane j % 32 of rm0 (j < 32) or rm1
+      float rm0 = 1.0f, rm1 = 1.0f;
+      if (rowmask != nullptr) {
+        const float* rm = rowmask + static_cast<size_t>(w % nw) * N;
+        rm0 = rm[lane];
+        rm1 = lane < N - 32 ? rm[32 + lane] : 1.0f;
+      }
+      ln_window<bf16, C, 4 * P::CS>(
+          xw, ln1s, ln1b,
+          [&](int r) {          // r differs between a warp's lanes: two shuffles
+            const float lo = __shfl_sync(0xffffffffu, rm0, r % 32);
+            const float hi = __shfl_sync(0xffffffffu, rm1, r % 32);
+            return r < 32 ? lo : hi;
+          },
+          my + P::LN, wl);
+      if (region != nullptr) {
+        const int* rr = region + static_cast<size_t>(w % nw) * N;
+        rl = rr[lane];
+        rh = lane < N - 32 ? rr[32 + lane] : 0;
+      }
+    }
+    sm90::fence_proxy_async();
+    sync_wg();
+
+    for (int h = 0; h < P::HEADS; ++h) {
+      // q | k | v of head h, this warpgroup's NQ of the 96 columns:
+      // [64, C] x [C, NQ]
+      float acc[P::NQ / 2];
+#pragma unroll
+      for (int z = 0; z < P::NQ / 2; ++z) acc[z] = 0.0f;
+      const bool attends = h % P::CS == cs;      // this warpgroup takes head h's attention
+      unsigned char* qkv = my + P::QKV + (h % P::QB) * 3 * P::QT;
+      uint32_t bz[7][2];                // the head's bias, loaded under the product
+      if (attends) head_bias(bias + static_cast<size_t>(h) * N * N, wq, bz);
+#pragma unroll
+      for (int ku = 0; ku < P::UQ; ++ku) {
+        const uint32_t slot = acquire();
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < P::KQ; ++u) {
+          const int kb = ku * P::KQ + u;
+          const uint64_t db = sm90::sw128_desc(slot + (u * 96 + cs * P::NQ) * 128);
+#pragma unroll
+          for (int k = 0; k < 64; k += 16)
+            if (kb * 64 + k < C)
+              sm90::wgmma_ss(acc, sm90::desc_add(da_ln, kb * P::TB + k * 2),
+                             sm90::desc_add(db, k * 2), kb > 0 || k > 0);
+        }
+        retire();
+      }
+      drain();
+      sm90::fence_regs(acc);
+      // one set: the last head's attention must be done with it (two: the
+      // barrier after the last head's epilogue saw the attention before that)
+      if constexpr (P::QB == 1) sync_wg();
+      // + bqkv, rounded; q * scale rounded; rows past the window zero
+#pragma unroll
+      for (int j = 0; j < P::NQ / 8; ++j) {
+        const int col = cs * P::NQ + 8 * j + ec, which = col / HD, d = col % HD;
+        const float2 b = *reinterpret_cast<const float2*>(bqkv + which * C + h * HD + d);
+        const float mul = which == 0 ? scale : 1.0f;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int row = er + 8 * hi;
+          const float v0 = round_to<bf16>(acc[4 * j + 2 * hi] + b.x);
+          const float v1 = round_to<bf16>(acc[4 * j + 2 * hi + 1] + b.y);
+          *reinterpret_cast<uint32_t*>(qkv + which * P::QT + sm90::sw64_offset(row, d)) =
+              row < N ? pack_bf16(which == 0 ? v0 * mul : v0, which == 0 ? v1 * mul : v1) : 0u;
+        }
+      }
+      sync_wg();
+      if (has && attends)
+        attend_rows(qkv, P::QT, 0, wq, bz, rl, rh, region != nullptr, my + P::AO, P::TB, h * HD);
+    }
+    sm90::fence_proxy_async();
+    sync_wg();                          // the attention-output tile is whole
+
+    // proj: [64, C] x [C, N2] for this warpgroup's columns, in pieces of 96
+    float pacc[P::NP][48];
+#pragma unroll
+    for (int z = 0; z < (P::NP) * 48; ++z) (&pacc[0][0])[z] = 0.0f;
+#pragma unroll
+    for (int kb = 0; kb < P::KB; ++kb) {
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p) {
+        const uint64_t db = sm90::sw128_desc(acquire() + cs * 96 * 128);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 64; k += 16)
+          if (kb * 64 + k < C)
+            sm90::wgmma_ss(pacc[p], sm90::desc_add(da_ao, kb * P::TB + k * 2),
+                           sm90::desc_add(db, k * 2), kb > 0 || k > 0);
+        retire();
+      }
+    }
+    drain();
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) sm90::fence_regs(pacc[p]);
+    sync_wg();                          // every product is done with the attention output
+    // h = x + proj + bproj, float32
+    if (has) {
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          const int col = cs * P::N2 + p * 96 + 8 * j + ec;
+          const float2 b = *reinterpret_cast<const float2*>(bproj + col);
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int row = er + 8 * hi;
+            if (row < N) {
+              const float2 xv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(xw + row * C + col));
+              *reinterpret_cast<float2*>(hw + row * C + col) =
+                  make_float2((xv.x + pacc[p][4 * j + 2 * hi]) + b.x,
+                              (xv.y + pacc[p][4 * j + 2 * hi + 1]) + b.y);
+            }
+          }
+        }
+    }
+    sync_wg();
+    // LN2(h) into the LN tile
+    if (has) ln_window<float, C, 4 * P::CS>(hw, ln2s, ln2b, [](int) { return 1.0f; }, my + P::LN, wl);
+    sm90::fence_proxy_async();
+    sync_wg();
+
+    // the MLP: per chunk of BH hidden units, fc1, + b1, gelu, rounded once,
+    // and the chunk's share of fc2 into y. The gelu values are fc2's A
+    // operand in registers where one warpgroup holds them all (CS = 1), else
+    // the window's warpgroups meet in the gelu tile.
+    float y[P::NP][48];
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 48; ++i) y[p][i] = 0.0f;
+    for (int ch = 0; ch < P::CHUNKS; ++ch) {
+      const int h0 = ch * P::BH;
+      float a1[P::N1 / 2];
+#pragma unroll
+      for (int z = 0; z < P::N1 / 2; ++z) a1[z] = 0.0f;
+#pragma unroll
+      for (int ku = 0; ku < P::U1; ++ku) {
+        const uint32_t slot = acquire();
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < P::K1; ++u) {
+          const int kb = ku * P::K1 + u;
+          const uint64_t db = sm90::sw128_desc(slot + u * P::K1_BYTES + cs * P::N1 * 128);
+#pragma unroll
+          for (int k = 0; k < 64; k += 16)
+            if (kb * 64 + k < C)
+              sm90::wgmma_ss(a1, sm90::desc_add(da_ln, kb * P::TB + k * 2),
+                             sm90::desc_add(db, k * 2), kb > 0 || k > 0);
+        }
+        retire();
+      }
+      drain();
+      sm90::fence_regs(a1);
+      uint32_t frag[P::BH / 16][4];
+      if constexpr (P::CS > 1) sync_wg();       // the last chunk's fc2 is done with the gelu tile
+#pragma unroll
+      for (int j = 0; j < P::N1 / 8; ++j) {
+        const int col = cs * P::N1 + 8 * j + ec;
+        const float2 b = *reinterpret_cast<const float2*>(b1 + h0 + col);
+        const uint32_t lo = pack_bf16(gelu_erf(a1[4 * j] + b.x), gelu_erf(a1[4 * j + 1] + b.y));
+        const uint32_t hi = pack_bf16(gelu_erf(a1[4 * j + 2] + b.x), gelu_erf(a1[4 * j + 3] + b.y));
+        if constexpr (P::CS == 1) {
+          frag[j / 2][(j % 2) * 2] = lo;
+          frag[j / 2][(j % 2) * 2 + 1] = hi;
+        } else {
+          *reinterpret_cast<uint32_t*>(my + P::GT + sm90::sw128_offset(er, col)) = lo;
+          *reinterpret_cast<uint32_t*>(my + P::GT + sm90::sw128_offset(er + 8, col)) = hi;
+        }
+      }
+      if constexpr (P::CS > 1) {
+        sm90::fence_proxy_async();
+        sync_wg();                              // the whole gelu chunk is written
+      }
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p) {
+        const uint64_t db = sm90::sw128_desc(acquire() + cs * 96 * 128);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < P::BH; k += 16) {
+          if constexpr (P::CS == 1)
+            sm90::wgmma_rs(y[p], frag[k / 16], sm90::desc_add(db, k * 2), 1);
+          else
+            sm90::wgmma_ss(y[p], sm90::desc_add(sm90::sw128_desc(mine + P::GT), k * 2),
+                           sm90::desc_add(db, k * 2), 1);
+        }
+        retire();
+      }
+    }
+    drain();
+#pragma unroll
+    for (int p = 0; p < P::NP; ++p) sm90::fence_regs(y[p]);
+
+    // y = h + fc2 + b2, rounded once
+    if (has) {
+#pragma unroll
+      for (int p = 0; p < P::NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          const int col = cs * P::N2 + p * 96 + 8 * j + ec;
+          const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int row = er + 8 * hi;
+            if (row < N) {
+              const float2 hv = *reinterpret_cast<const float2*>(hw + row * C + col);
+              *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(w) * N + row) * C + col) =
+                  pack_bf16((hv.x + y[p][4 * j + 2 * hi]) + b.x,
+                            (hv.y + y[p][4 * j + 2 * hi + 1]) + b.y);
+            }
+          }
+        }
+    }
+  }
+}
+
+// ------------------------------------- bf16, one block a window -----
+//
+// PR 3's body, kept at C = 768 (swin_block()): 256 threads on one window;
+// the attention half is attn_block.cu's (swin_common.cuh: mma.sync, weight
+// chunks by cp.async one ahead), the MLP half mlp_hidden_walk in two passes
+// of 32 rows.
+
+// Where the float32 h [49, C] lives between the halves: in shared memory
+// where it fits beside the rest (C = 96, 384); else through the scratch
+// tensor (C = 768, and 192, where leaving it out lets two blocks share an SM).
 template <int C> struct HShared { static constexpr bool value = C == 96 || C == 384; };
 
 // BM: rows per pass of the MLP walk.
 template <int C, int BM>
 __global__ void __launch_bounds__(THREADS, C <= 192 ? 2 : 1)
-swin_block_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ rowmask,
+swin_block_bf16_window_kernel(const bf16* __restrict__ x, const float* __restrict__ rowmask,
                        const float* __restrict__ ln1s, const float* __restrict__ ln1b,
                        const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
                        const bf16* __restrict__ bias, const int* __restrict__ region,
@@ -145,6 +858,30 @@ swin_block_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ row
   }
 }
 
+
+template <int C, int BM>
+int launch_window(const void* x, const void* rowmask, const void* ln1s, const void* ln1b,
+                const void* wqkv, const void* bqkv, const void* bias, const void* region,
+                const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
+                const void* k1, const void* b1, const void* k2, const void* b2, void* scratch,
+                void* out, int bnw, int nw, cudaStream_t stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  constexpr bool H_SHARED = HShared<C>::value;
+  if (!H_SHARED && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = WindowSmem<C>::END + (H_SHARED ? N * C * 4 : 0);
+  auto kernel = swin_block_bf16_window_kernel<C, BM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<bnw, THREADS, smem, stream>>>(
+      h(x), f(rowmask), f(ln1s), f(ln1b), h(wqkv), f(bqkv), h(bias), static_cast<const int*>(region),
+      h(wproj), f(bproj), f(ln2s), f(ln2b), h(k1), f(b1), h(k2), f(b2),
+      static_cast<float*>(scratch), static_cast<bf16*>(out), nw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------- float32 -----
+
 template <int C>
 __global__ void __launch_bounds__(THREADS)
 swin_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ rowmask,
@@ -193,37 +930,62 @@ swin_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ row
   }
 }
 
-template <int C, int BM>
-int launch(const void* x, const void* rowmask, const void* ln1s, const void* ln1b,
-           const void* wqkv, const void* bqkv, const void* bias, const void* region,
-           const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
-           const void* k1, const void* b1, const void* k2, const void* b2, void* scratch,
-           void* out, int bnw, int nw, int is_bf16, cudaStream_t stream) {
+
+template <int C>
+int launch_bf16_sm90(const void* x, const void* rowmask, const void* ln1s, const void* ln1b,
+                     const void* wqkv, const void* bqkv, const void* bias, const int* region,
+                     const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
+                     const void* k1, const void* b1, const void* k2, const void* b2, void* out,
+                     int bnw, int nw, int blocks, cudaStream_t stream) {
+  using P = BlockPlan<C>;
+  const int tiles = (bnw + P::G - 1) / P::G;
+  if (blocks <= 0 || blocks > tiles) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tp, t1, t2;
+  if (!sm90::map_sw128(&tq, wqkv, C, 3 * C, HD) || !sm90::map_sw128(&tp, wproj, C, C, 96) ||
+      !sm90::map_sw128(&t1, k1, C, 4 * C, P::BH) || !sm90::map_sw128(&t2, k2, 4 * C, C, 96))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
-  const int* reg = static_cast<const int*>(region);
-  cudaError_t err;
-  if (is_bf16) {
-    constexpr bool H_SHARED = HShared<C>::value;
-    if (!H_SHARED && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = WindowSmem<C>::END + (H_SHARED ? N * C * 4 : 0);
-    auto kernel = swin_block_bf16_kernel<C, BM>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<bnw, THREADS, smem, stream>>>(
-        h(x), f(rowmask), f(ln1s), f(ln1b), h(wqkv), f(bqkv), h(bias), reg, h(wproj), f(bproj),
-        f(ln2s), f(ln2b), h(k1), f(b1), h(k2), f(b2), static_cast<float*>(scratch),
-        static_cast<bf16*>(out), nw);
-  } else {
-    const int smem = WindowSmemF32<C>::END * sizeof(float);
-    auto kernel = swin_block_f32_kernel<C>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<bnw, THREADS, smem, stream>>>(
-        f(x), f(rowmask), f(ln1s), f(ln1b), f(wqkv), f(bqkv), f(bias), reg, f(wproj), f(bproj),
-        f(ln2s), f(ln2b), f(k1), f(b1), f(k2), f(b2), static_cast<float*>(out), nw);
-  }
+  auto kernel = swin_block_bf16_sm90_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, P::THREADS, P::SMEM, stream>>>(
+      tq, tp, t1, t2, static_cast<const bf16*>(x), f(rowmask), f(ln1s), f(ln1b), f(bqkv),
+      static_cast<const bf16*>(bias), region, f(bproj), f(ln2s), f(ln2b), f(b1), f(b2),
+      static_cast<bf16*>(out), bnw, nw);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int launch_f32(const void* x, const void* rowmask, const void* ln1s, const void* ln1b,
+               const void* wqkv, const void* bqkv, const void* bias, const int* region,
+               const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
+               const void* k1, const void* b1, const void* k2, const void* b2, void* out,
+               int bnw, int nw, cudaStream_t stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int smem = WindowSmemF32<C>::END * sizeof(float);
+  auto kernel = swin_block_f32_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<bnw, THREADS, smem, stream>>>(
+      f(x), f(rowmask), f(ln1s), f(ln1b), f(wqkv), f(bqkv), f(bias), region, f(wproj), f(bproj),
+      f(ln2s), f(ln2b), f(k1), f(b1), f(k2), f(b2), static_cast<float*>(out), nw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// {windows a tile, warpgroups a window, threads a block, ring slots, dynamic
+// shared memory bytes, registers a thread, local (spill) bytes a thread} of
+// the tiled bf16 kernel.
+template <int C>
+int attributes_sm90(int* g) {
+  using P = BlockPlan<C>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, swin_block_bf16_sm90_kernel<C>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[7] = {P::G, P::CS, P::THREADS, P::STAGES, P::SMEM, attr.numRegs,
+                    static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 7; ++i) g[i] = v[i];
+  return 0;
 }
 
 }  // namespace
@@ -232,29 +994,57 @@ int launch(const void* x, const void* rowmask, const void* ln1s, const void* ln1
 // ln2b [c]; wqkv [3c, c]; bqkv [3c]; bias [c / 32, 49, 49]; region [nw, 49]
 // int32 or null; wproj [c, c]; bproj [c]; k1 [4c, c]; b1 [4c]; k2 [c, 4c];
 // b2 [c]. x, the four weight matrices, bias and out are bf16 when is_bf16 is
-// nonzero, else float32; everything else is float32. scratch is float32
-// [bnw, 49, c], needed for bf16 at c = 192 and 768 only (null otherwise). c is 96,
-// 192, 384 or 768; any other width returns cudaErrorInvalidValue.
+// nonzero, else float32; everything else is float32. bf16 at c = 96, 192 and
+// 384 runs the tiled kernel, whose grid is `blocks` (ops/swin_block.py::
+// kernel_geometry), at most one a tile; at c = 768 one block a window, with
+// scratch float32 [bnw, 49, c] (null otherwise). c is 96, 192, 384 or 768;
+// any other width, a bad grid or bf16 weights not 16-byte aligned return
+// cudaErrorInvalidValue.
 extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
                           const void* ln1b, const void* wqkv, const void* bqkv,
                           const void* bias, const void* region, const void* wproj,
                           const void* bproj, const void* ln2s, const void* ln2b, const void* k1,
                           const void* b1, const void* k2, const void* b2, void* scratch,
-                          void* out, int bnw, int c, int nw, int is_bf16, void* stream) {
+                          void* out, int bnw, int c, int nw, int is_bf16, int blocks,
+                          void* stream) {
   if (bnw <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // (C, rows per pass of the bf16 MLP walk)
-#define SWIN_BLOCK_CASE(C, BM)                                                              \
-  case C:                                                                                   \
-    return launch<C, BM>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, region, wproj, bproj,    \
-                         ln2s, ln2b, k1, b1, k2, b2, scratch, out, bnw, nw, is_bf16, s);
+  const int* reg = static_cast<const int*>(region);
+#define SWIN_BLOCK_F32(C)                                                                  \
+  launch_f32<C>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, reg, wproj, bproj, ln2s, ln2b,  \
+                k1, b1, k2, b2, out, bnw, nw, s)
+#define SWIN_BLOCK_TILED(C)                                                                \
+  case C:                                                                                  \
+    return is_bf16 ? launch_bf16_sm90<C>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, reg,    \
+                                         wproj, bproj, ln2s, ln2b, k1, b1, k2, b2, out,    \
+                                         bnw, nw, blocks, s)                               \
+                   : SWIN_BLOCK_F32(C);
+#define SWIN_BLOCK_WINDOW(C, BM)                                                           \
+  case C:                                                                                  \
+    return is_bf16 ? launch_window<C, BM>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, region, \
+                                          wproj, bproj, ln2s, ln2b, k1, b1, k2, b2,        \
+                                          scratch, out, bnw, nw, s)                        \
+                   : SWIN_BLOCK_F32(C);
   switch (c) {
-    SWIN_BLOCK_CASE(96, 64)
-    SWIN_BLOCK_CASE(192, 64)
-    SWIN_BLOCK_CASE(384, 64)
-    SWIN_BLOCK_CASE(768, 32)
+    SWIN_BLOCK_TILED(96)
+    SWIN_BLOCK_TILED(192)
+    SWIN_BLOCK_TILED(384)
+    SWIN_BLOCK_WINDOW(768, 32)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SWIN_BLOCK_CASE
+#undef SWIN_BLOCK_WINDOW
+#undef SWIN_BLOCK_TILED
+#undef SWIN_BLOCK_F32
+}
+
+// The tiled bf16 kernel's compiled shape for width c (96, 192 or 384) into
+// g[0..7), in the order attributes_sm90 lists.
+extern "C" int swin_block_attributes(int c, int* g) {
+  switch (c) {
+    case 96: return attributes_sm90<96>(g);
+    case 192: return attributes_sm90<192>(g);
+    case 384: return attributes_sm90<384>(g);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

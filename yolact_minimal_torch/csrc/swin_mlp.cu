@@ -323,19 +323,6 @@ mlp_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm1,
   }
 }
 
-// A row-major bf16 [outer, inner] matrix in boxes of [box_outer, 64], 128-byte swizzled.
-bool weight_map(CUtensorMap* map, const void* ptr, int inner, int outer, int box_outer) {
-  sm90::EncodeTiledFn fn = sm90::encode_tiled();
-  if (fn == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int sm_count(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -360,7 +347,8 @@ int launch_bf16_sm90(const void* x, const void* lns, const void* lnb, const void
                      cudaStream_t stream) {
   using P = MlpPlan<C>;
   CUtensorMap tm1, tm2;
-  if (!weight_map(&tm1, k1, C, 4 * C, P::BH) || !weight_map(&tm2, k2, 4 * C, C, P::BN2))
+  if (!sm90::map_sw128(&tm1, k1, C, 4 * C, P::BH) ||
+      !sm90::map_sw128(&tm2, k2, 4 * C, C, P::BN2))
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
   if (int err = blocks_sm90<C>((rows + P::BM - 1) / P::BM, &blocks)) return err;

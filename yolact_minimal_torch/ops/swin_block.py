@@ -11,7 +11,8 @@ attended to; the caller crops its output row.
 `swin_block` launches the hand-written CUDA kernel (`csrc/swin_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `swin_block_plain`,
 for tensors on the CPU. It counts its kernel launches in
-`swin_block.launches`.
+`swin_block.launches`. `kernel_geometry` fixes the bf16 launch's grid (tiles
+of windows at C = 96, 192 and 384, one block a window at C = 768).
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm1 in float32 (eps 1e-5), times the rowmask,
@@ -27,7 +28,9 @@ keeps them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,13 +39,79 @@ from yolact_minimal_torch.ops import _build
 from yolact_minimal_torch.ops.attn_block import (check_kernel_shape, check_params,
                                                  check_per_window, check_windows)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS
-from yolact_minimal_torch.ops.window_attention import window_attention_plain
+from yolact_minimal_torch.ops.window_attention import _sm_count, window_attention_plain
 
-# Row widths at which the bfloat16 kernel keeps the float32 h in device
-# memory (a scratch tensor the wrapper allocates) rather than in shared
-# memory: at 768 [49, C] float32 does not fit beside the other operands, at
-# 192 leaving it out lets two blocks share a multiprocessor.
-SCRATCH_WIDTHS = (192, 768)
+# The tiled bf16 kernel's shape per row width C, as csrc/swin_block.cu
+# compiles it (`kernel_attributes` reports it from the compiled kernel): G
+# windows a tile, CS warpgroups a window (each takes 1 / CS of every
+# product's columns), ring slots, and the 64-wide k-blocks that one use of
+# the ring carries for the qkv and for the fc1 product. At C = 768 the bf16
+# body is one block a window, which keeps the float32 h in a scratch tensor
+# that the wrapper allocates.
+KERNEL_SHAPES = {96: (3, 1, 3, 2, 2), 192: (2, 1, 4, 1, 3), 384: (1, 2, 4, 2, 3)}
+SCRATCH_WIDTHS = (768,)
+TOKENS = 49
+SHARED_MEMORY_LIMIT = 232448          # bytes a block may use on an H100
+WEIGHT_BOX_ROWS = (32, 96, 64, 96)    # TMA boxes of wqkv, wproj, k1, k2 (at most 256)
+
+
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def shared_bytes(c: int) -> int:
+    """Dynamic shared memory of a tiled bf16 block at width c, as
+    BlockPlan<C> lays it out: per window the LN tile [64, C], the
+    attention-output tile and one set of q, k, v tiles (two where CS > 1)
+    with h [49, C] float32 over them, and where CS > 1 the gelu tile
+    [64, 64]; then the ring, whose slots hold the largest use (KQ k-blocks of
+    a head's 96 q | k | v rows, K1 of a chunk's 64 k1 rows, or one of CS x 96
+    proj or k2 rows), its barriers (in the first window's unused tail where
+    they fit) and 1 KB to align the base."""
+    g, cs, stages, kq, k1 = KERNEL_SHAPES[c]
+    tile = -(-c // 64) * 64 * 128
+    qkv_sets = 2 if cs > 1 else 1
+    used = max(2 * tile + qkv_sets * 3 * 64 * 64, tile + TOKENS * c * 4)
+    window = _align1k(used) + (64 * 128 if cs > 1 else 0)
+    slot = max(96 * kq, 64 * k1, 96 * cs) * 128
+    barriers = 2 * stages * 8        # in window 0's unused tail where they fit
+    tail = _align1k(used) - used >= barriers
+    return g * window + stages * slot + (0 if tail else barriers) + 1024
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """The bf16 launch: `blocks` persistent blocks walk `tiles` tiles of
+    `windows_per_tile` consecutive windows (the last may hold fewer); block b
+    takes tiles b, b + blocks, ..., `rounds` at most."""
+    bnw: int
+    windows_per_tile: int
+    tiles: int
+    blocks: int
+    rounds: int
+
+    def windows(self, block: int) -> List[range]:
+        """The windows of each tile block `block` walks, in its order."""
+        g = self.windows_per_tile
+        return [range(t * g, min(self.bnw, (t + 1) * g))
+                for t in range(block, self.tiles, self.blocks)]
+
+
+@lru_cache(maxsize=64)
+def kernel_geometry(bnw: int, c: int, sms: int) -> Geometry:
+    """The bf16 kernel's launch for bnw windows of width c on a card of `sms`
+    multiprocessors. Tiled widths: tiles of G windows, one block a
+    multiprocessor (each takes most of one's shared memory), or one a tile
+    where there are fewer tiles. C = 768: one block a window."""
+    if bnw <= 0 or c not in (96, 192, 384, 768) or sms <= 0:
+        raise ValueError(f'kernel_geometry: bnw={bnw}, c={c}, sms={sms}')
+    if c not in KERNEL_SHAPES:
+        return Geometry(bnw=bnw, windows_per_tile=1, tiles=bnw, blocks=bnw, rounds=1)
+    g = KERNEL_SHAPES[c][0]
+    tiles = -(-bnw // g)
+    blocks = min(tiles, sms)
+    return Geometry(bnw=bnw, windows_per_tile=g, tiles=tiles, blocks=blocks,
+                    rounds=-(-tiles // blocks))
 
 
 def swin_block_plain(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bqkv,
@@ -116,14 +185,17 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
     if out.numel() == 0:
         return out
     is_bf16 = x.dtype == torch.bfloat16
-    scratch = None
-    if is_bf16 and x.shape[2] in SCRATCH_WIDTHS:
-        scratch = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    bnw, _, c = x.shape
+    scratch, blocks = None, 0
+    if is_bf16:
+        blocks = kernel_geometry(bnw, c, _sm_count(x.device.index or 0)).blocks
+        if c in SCRATCH_WIDTHS:
+            scratch = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     nw = rowmask.shape[0] if rowmask is not None else \
         region.shape[0] if region is not None else 0
     lib = _build.load('swin_block')
     fn = lib.swin_block
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
@@ -131,9 +203,29 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
         _build.launch(fn, ptr(x), ptr(rowmask), ptr(ln1_scale), ptr(ln1_bias), ptr(wqkv),
                       ptr(bqkv), ptr(bias), ptr(region), ptr(wproj), ptr(bproj),
                       ptr(ln2_scale), ptr(ln2_bias), ptr(k1), ptr(b1), ptr(k2), ptr(b2),
-                      ptr(scratch), ptr(out), x.shape[0], x.shape[2], nw, int(is_bf16), stream)
+                      ptr(scratch), ptr(out), bnw, c, nw, int(is_bf16), blocks, stream)
     swin_block.launches += 1
     return out
 
 
 swin_block.launches = 0
+
+
+ATTRIBUTE_KEYS = ('windows_per_tile', 'column_split', 'threads', 'stages', 'smem_bytes',
+                  'registers', 'spill_bytes')
+
+
+def kernel_attributes(c: int) -> dict:
+    """The compiled tiled bf16 kernel's shape at width c (KERNEL_SHAPES):
+    windows a tile, warpgroups a window, threads, ring slots and dynamic
+    shared memory bytes a block, and the registers and local (spill) bytes a
+    thread."""
+    if c not in KERNEL_SHAPES:
+        raise ValueError(f'kernel_attributes: the tiled kernel takes C in '
+                         f'{tuple(KERNEL_SHAPES)}, got {c}')
+    out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+    fn = _build.load('swin_block').swin_block_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.launch(fn, c, ctypes.addressof(out))
+    return dict(zip(ATTRIBUTE_KEYS, out))
