@@ -14,7 +14,7 @@ Phases, in order; any failure exits nonzero:
      shifted and unshifted (the whole-block kernel with the padded map's
      rowmask and once without), the two block kernels beside the times of
      what they replace, the MLP kernel beside a composition of PyTorch calls,
-     the window-attention, MLP and whole-block kernels with their launch
+     the window-attention, MLP and both block kernels with their launch
      geometry and a check that two launches agree bit for bit; the mask
      kernel with its launch geometry on input (a), a fixture with crop, and
      (b), the same without, and after phase 4 on (c), the res50 path's own
@@ -58,10 +58,11 @@ the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
 CLI's, res50_coco/cli, too). `bound_ms` is held to the
 peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
-around one call, the wrapper's host work included; window attention also
-has `device_ms`, its kernel's device time under torch.profiler (and SDPA's,
-`library_device_ms`), since at stages 1-3 the host's launch overhead sets a
-floor under the event time.
+around one call, the wrapper's host work included; window attention, the
+mask kernel and both block kernels also have `device_ms`, the kernel's
+device time under torch.profiler (window attention also SDPA's,
+`library_device_ms`), since the host's launch overhead sets a floor under
+the event time.
 """
 import contextlib
 import json
@@ -135,7 +136,7 @@ GROUPS = (
     ('mask_finalize kernel', r'mask_finalize_kernel'),
     ('window_attention kernel', r'window_attention_(bf16|f32)_kernel'),
     ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel'),
-    ('attn_block kernel', r'attn_block_bf16_kernel|attn_block_f32_kernel'),
+    ('attn_block kernel', r'attn_block_\w*kernel|attn_heads_\w*kernel|proj_rows_\w*kernel'),
     ('swin_block kernel', r'swin_block_\w*kernel'),
     ('layer norm', r'layer_norm|LayerNorm'),
     ('convolution / gemm', r'conv|gemm|xmma|cutlass|cudnn|sm90_|implicit|nvjet|cublas'),
@@ -650,14 +651,20 @@ def _block_ops(stage, whole):
 
 def check_attn_block(dev, attention):
     """Kernel 5 at the four stage shapes: bf16 and float32, shifted and
-    unshifted, against the plain version; timed in bf16 on the shifted form,
-    beside the composed path's pieces for the same rows: cuBLAS qkv, kernel 3,
-    cuBLAS proj in one timing, and kernel 3's own time from this run."""
+    unshifted, against the plain version; two bf16 launches must give the same
+    bits. Timed in bf16 on the shifted form (events, and device time under
+    torch.profiler), beside the composed path's pieces for the same rows:
+    cuBLAS qkv, kernel 3, cuBLAS proj in one timing (events and device time),
+    and kernel 3's own time from this run; with the launch geometry of the
+    form the width runs (tiled at C = 96, two phases above)."""
     import torch
     import torch.nn.functional as F
-    from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
+    from yolact_minimal_torch.ops.attn_block import (TILED_WINDOWS, attn_block,
+                                                     attn_block_plain, kernel_attributes,
+                                                     kernel_geometry)
     from yolact_minimal_torch.ops.window_attention import window_attention
     g = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_stage = []
     for stage, (bnw, nw, c, heads, _) in enumerate(SWIN_STAGES):
         p = _block_inputs(dev, g, stage)
@@ -677,24 +684,55 @@ def check_attn_block(dev, attention):
         x, bias = p['x'].to(bf), p['bias'].to(bf)
         wqkv, wproj = p['qkv'][0].to(bf), p['proj'][0].to(bf)
         args = (x, wqkv, p['qkv'][1], bias, p['region'], wproj, p['proj'][1], heads)
+        got = attn_block(*args)
+        _check(torch.equal(got, attn_block(*args)), f'attn_block stage {stage}: two launches differ')
         ms = _time_ms(lambda: attn_block(*args))
+        device_ms = _device_ms(lambda: attn_block(*args))
+        del got
         plain_ms = _time_ms(lambda: attn_block_plain(*args), warmup=1, iters=5)
         bqkv, bproj = p['qkv'][1].to(bf), p['proj'][1].to(bf)
-        composed_ms = _time_ms(lambda: F.linear(window_attention(
-            F.linear(x, wqkv, bqkv), bias, p['region'], heads), wproj, bproj))
+        composed = lambda: F.linear(window_attention(F.linear(x, wqkv, bqkv), bias, p['region'],
+                                                     heads), wproj, bproj)
+        composed_ms = _time_ms(composed)
+        composed_device_ms = _device_ms(composed)
         n_bytes = (2 * x.numel() + wqkv.numel() + wproj.numel() + bias.numel()) * 2 + \
             (4 * c + p['region'].numel()) * 4
         bound, by = _bound_ms(n_bytes, _block_ops(stage, False), BF16_PEAK)
         k3 = attention['per_stage'][stage]['ms']
-        print(f'kernel attn_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms, '
-              f'plain {plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms '
-              f'({by}); what it replaces, this run: cuBLAS qkv + kernel 3 + cuBLAS proj '
-              f'{composed_ms:.4f} ms (kernel 3 alone {k3:.4f}); |kernel - plain| / max |plain|: '
-              f'bf16 {worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
-              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g})')
-        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, plain_ms=plain_ms,
-                              f32_ms=f32_ms, bound_ms=bound, bound_by=by, library_ms=None,
-                              composed_ms=composed_ms, window_attention_ms=k3,
+        print(f'kernel attn_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms '
+              f'(device {device_ms:.4f}), plain {plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, '
+              f'bound {bound:.5f} ms ({by}); what it replaces, this run: cuBLAS qkv + kernel 3 + '
+              f'cuBLAS proj {composed_ms:.4f} ms (device {composed_device_ms:.4f}; kernel 3 alone '
+              f'{k3:.4f}); |kernel - plain| / '
+              f'max |plain|: bf16 {worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
+              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g}); two bf16 launches '
+              f'bit-equal')
+        geo = kernel_geometry(bnw, c, sms)
+        attrs = kernel_attributes(c)
+        kernels = ', '.join(f'{name} {a["threads"]} threads, {a["smem_bytes"]} B dynamic shared '
+                            f'memory, {a["registers"]} registers, {a["spill_bytes"]} B local '
+                            f'(spill) a thread' for name, a in attrs.items())
+        if c in TILED_WINDOWS:
+            geometry = dict(form='tiled', grid=geo.blocks, tiles=geo.tiles,
+                            windows_per_tile=geo.windows_per_tile, rounds=geo.rounds,
+                            waves=geo.tiles / geo.blocks, sms=sms, kernels=attrs)
+            print(f'  geometry: tiled, grid {geo.blocks} blocks on {sms} SMs for {geo.tiles} tiles '
+                  f'of G = {geo.windows_per_tile} windows ({geo.rounds} rounds, '
+                  f'{geo.tiles / geo.blocks:.2f} tiles a block), weights resident; {kernels}')
+        else:
+            geometry = dict(form='two phases', heads_grid=geo.blocks, chunks=geo.chunks,
+                            warpgroups=geo.warpgroups, rounds=geo.rounds,
+                            row_tiles=geo.row_tiles, proj_grid=geo.proj_blocks, sms=sms,
+                            kernels=attrs)
+            print(f'  geometry: two phases; phase 1 grid {geo.blocks} blocks ({geo.heads} heads x '
+                  f'{geo.chunks} chunks) of {geo.warpgroups} warpgroups, {geo.rounds} windows a '
+                  f'warpgroup at most; phase 2 grid {geo.proj_blocks} blocks for {geo.row_tiles} '
+                  f'row tiles of 64 on {sms} SMs; {kernels}')
+        per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, f32_ms=f32_ms, bound_ms=bound, bound_by=by,
+                              library_ms=None, composed_ms=composed_ms,
+                              composed_device_ms=composed_device_ms, window_attention_ms=k3,
+                              geometry=geometry,
                               max_abs_err=worst[bf][0],
                               max_abs_err_f32=worst[torch.float32][0]))
         del p, x, args, args32
@@ -705,10 +743,10 @@ def check_attn_block(dev, attention):
                 max_abs_err=top['max_abs_err'],
                 agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
                           f'{SWIN_F32_REL_TOL:.3g} of max |plain|, 4 stage shapes, shifted '
-                          f'and unshifted',
-                ms=top['ms'], kernel_ms=top['ms'], plain_ms=top['plain_ms'],
-                bound_ms=top['bound_ms'], bound_by=top['bound_by'], peak=BF16_PEAK,
-                library_ms=None, per_stage=per_stage)
+                          f'and unshifted; two bf16 launches bit-equal',
+                ms=top['ms'], kernel_ms=top['ms'], device_ms=top['device_ms'],
+                plain_ms=top['plain_ms'], bound_ms=top['bound_ms'], bound_by=top['bound_by'],
+                peak=BF16_PEAK, library_ms=None, per_stage=per_stage)
 
 
 def check_swin_block(dev, attention, mlp):

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from yolact_minimal_torch.config import get_config
+from yolact_minimal_torch.ops import attn_block as attn_block_ops
 from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
@@ -234,7 +235,7 @@ def _block_params(card, rng, c, heads, nw, dtype, masked, padded):
 
 
 @pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
-@pytest.mark.parametrize('heads,nw', [(3, 25), (24, 9)])
+@pytest.mark.parametrize('heads,nw', [(3, 25), (6, 4), (12, 4), (24, 9)])
 @pytest.mark.parametrize('masked', [False, True])
 def test_attn_block_kernel_matches_plain(card, dtype, tol, heads, nw, masked):
     p = _block_params(card, np.random.RandomState(2), heads * 32, heads, nw, dtype, masked, False)
@@ -249,6 +250,77 @@ def test_attn_block_kernel_matches_plain(card, dtype, tol, heads, nw, masked):
     with pytest.raises(ValueError, match='the kernel takes 49 tokens'):
         attn_block(p[0][:, :, :64].contiguous(), p[4][:192, :64].contiguous(), p[5][:192],
                    p[6][:2].contiguous(), None, p[8][:64, :64].contiguous(), p[9][:64], 2)
+
+
+def _attn_tile_case_params(card, rng, c, bnw, masked):
+    """attn_block's arguments in bf16 for bnw windows of width c, every
+    window an image of its own (nW = 1), with or without the region ids of
+    the shifted 7x7 map."""
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(card)
+    heads = c // 32
+    region = torch.from_numpy(shifted_window_regions(7, 7)).to(card) if masked else None
+    return (dev(rng.randn(bnw, 49, c)).bfloat16(),
+            dev(rng.randn(3 * c, c) * c ** -0.5).bfloat16(), dev(rng.randn(3 * c) * 0.05),
+            dev(rng.randn(heads, 49, 49) * 0.1).bfloat16(), region,
+            dev(rng.randn(c, c) * c ** -0.5).bfloat16(), dev(rng.randn(c) * 0.05), heads)
+
+
+# Window counts against the bf16 launch: at C = 96 tiles of 3 windows on a
+# grid of one block a multiprocessor (132 on an H100): one window, 2 and 4
+# (partial last tiles), a count whose tiles leave blocks idle and one whose
+# tiles take a second round with a partial last tile; at C = 192, 384, 768
+# phase 1's warpgroups a head (66, 33, 10 on 132 multiprocessors) one either
+# side and several rounds of them, and phase 2's groups of row tiles (a last
+# partial tile and group, more groups than blocks).
+def _attn_window_counts(c):
+    if c in attn_block_ops.TILED_WINDOWS:
+        g = attn_block_ops.TILED_WINDOWS[c]
+        return sorted({1, g - 1, g + 1, 100 * g - 1, 133 * g + 1})
+    slots = (132 // (c // 32)) * attn_block_ops.HEAD_SHAPES[c][0]
+    return sorted({1, slots - 1, slots + 1, 3 * slots + 2, 301})
+
+
+ATTN_TILE_CASES = [(c, bnw) for c in (96, 192, 384, 768) for bnw in _attn_window_counts(c)]
+
+
+@pytest.mark.parametrize('c,bnw', ATTN_TILE_CASES)
+@pytest.mark.parametrize('masked', [False, True])
+def test_attn_block_kernel_matches_plain_on_partial_tiles(card, c, bnw, masked):
+    args = _attn_tile_case_params(card, np.random.RandomState(6), c, bnw, masked)
+    before = attn_block.launches
+    got = attn_block(*args)
+    torch.cuda.synchronize()
+    assert attn_block.launches == before + 1
+    ref = attn_block_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (bnw, 49, c)
+    assert torch.isfinite(got.float()).all()
+    _assert_close_rel(got, ref, 2.0 ** -7)
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+def test_attn_block_kernel_is_deterministic(card, c):
+    # a fixed tile order and no atomics: two launches, the same bits
+    args = _attn_tile_case_params(card, np.random.RandomState(7), c, 301, True)
+    first = attn_block(*args)
+    second = attn_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+def test_attn_block_kernel_is_built_as_the_geometry_assumes(card, c):
+    attrs = attn_block_ops.kernel_attributes(c)
+    sizes = attn_block_ops.shared_bytes(c)
+    if c in attn_block_ops.TILED_WINDOWS:
+        threads = (128 * attn_block_ops.TILED_WINDOWS[c],)
+    else:
+        rw, cs = attn_block_ops.PROJ_SHAPES[c][:2]
+        threads = (128 * attn_block_ops.HEAD_SHAPES[c][0], 128 * rw * cs)
+    assert len(attrs) == len(sizes) == len(threads)
+    for a, smem, n in zip(attrs.values(), sizes, threads):
+        assert a['threads'] == n and a['smem_bytes'] == smem <= 232448
+        assert 0 < a['registers'] * a['threads'] <= 65536
 
 
 @pytest.mark.parametrize('dtype,tol', SWIN_TOLS)

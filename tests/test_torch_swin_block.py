@@ -8,10 +8,10 @@ import torch
 
 from yolact_minimal_tpu.models import swin as jax_swin
 from yolact_minimal_tpu.ops.swin_block import _block_xla, swin_block_fused
-from yolact_minimal_torch.ops.attn_block import attn_block_plain
-from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, SHARED_MEMORY_LIMIT,
-                                                 WEIGHT_BOX_ROWS, kernel_geometry,
-                                                 shared_bytes, swin_block, swin_block_plain)
+from yolact_minimal_torch.ops.attn_block import SHARED_MEMORY_LIMIT, attn_block_plain
+from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, WEIGHT_BOX_ROWS,
+                                                 kernel_geometry, shared_bytes, swin_block,
+                                                 swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import mlp_block_plain
 
 torch.set_num_threads(1)

@@ -146,6 +146,32 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c
       : "memory");
 }
 
+// TMA: shared memory at src into the box at (c0 inner, c1 outer) of a 2-D
+// tensor map, in the calling thread's bulk group; parts of the box outside
+// the tensor are not written.
+__device__ __forceinline__ void tma_store_2d(const void* map, int c0, int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the calling thread's bulk groups are still reading
+// shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of the calling thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Generic-proxy writes to shared memory become visible to wgmma / TMA.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

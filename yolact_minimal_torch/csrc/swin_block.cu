@@ -82,6 +82,7 @@
 // `out` doubles as the scratch for the attention output and for h.
 #include "sm90.cuh"
 #include "swin_common.cuh"
+#include "swin_tiled.cuh"
 
 namespace {
 
@@ -99,9 +100,6 @@ template <int C> struct BlockShape;
 template <> struct BlockShape<96> : BlockShapeOf<3, 1, 3, 2, 2> {};
 template <> struct BlockShape<192> : BlockShapeOf<2, 1, 4, 1, 3> {};
 template <> struct BlockShape<384> : BlockShapeOf<1, 2, 4, 2, 3> {};
-
-constexpr int align1k(int b) { return (b + 1023) / 1024 * 1024; }
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 template <int C> struct BlockPlan {
   static constexpr int G = BlockShape<C>::G, CS = BlockShape<C>::CS;
@@ -251,154 +249,6 @@ __device__ __forceinline__ void ln_window(const TIn* src, const float* __restric
   }
 }
 
-// The bias [49, 49] of one head for a thread of warp wq of a warpgroup:
-// bz[nt][hi] = (row 16 wq + lane / 4 + 8 hi; keys 8 nt + 2 (lane % 4), + 1)
-// as a bf16 pair, zero past the window.
-__device__ __forceinline__ void head_bias(const bf16* __restrict__ hb, int wq,
-                                          uint32_t (&bz)[7][2]) {
-  const int lane = threadIdx.x % 32, row0 = wq * 16 + lane / 4, t = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < 7; ++nt)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = row0 + 8 * hi, key = 8 * nt + 2 * t;
-      const float b0 = row < N && key < N ? to_f<bf16>(hb[row * N + key]) : 0.0f;
-      const float b1 = row < N && key + 1 < N ? to_f<bf16>(hb[row * N + key + 1]) : 0.0f;
-      bz[nt][hi] = pack_bf16(b0, b1);
-    }
-}
-
-// One warp (wq of the four of a warpgroup): query rows 16 wq .. 16 wq + 15
-// of the window whose 49 rows start at row `rb` of the q, k, v tiles (qt
-// bytes apart, 64-byte swizzled rows), for one head: softmax(q k^T + bias +
-// mask) v (q already scaled), rounded to bf16, into columns col0 .. col0 +
-// 31 of the swizzled attention-output tile (64-wide blocks tb bytes apart);
-// bz: the head's bias of this thread's scores (head_bias); rl, rh: the
-// window's region ids (token j in lane j % 32 of rl for j < 32, else rh),
-// masked: whether to compare them.
-__device__ __forceinline__ void attend_rows(const unsigned char* tq, int qt, int rb, int wq,
-                                            const uint32_t (&bz)[7][2], int rl, int rh,
-                                            bool masked, unsigned char* ao, int tb, int col0) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int row0 = wq * 16 + g;                  // this thread's rows: row0, row0 + 8
-  const unsigned char* tk = tq + qt;
-  const unsigned char* tv = tq + 2 * qt;
-
-  uint32_t qa[2][4];
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-    ldmatrix_x4(qa[ks], reinterpret_cast<const bf16*>(
-                            tq + sm90::sw64_offset(rb + wq * 16 + lane % 16,
-                                                   16 * ks + 8 * (lane / 16))));
-  float sacc[7][4];
-#pragma unroll
-  for (int nt = 0; nt < 7; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
-#pragma unroll
-  for (int kt = 0; kt < 4; ++kt)
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t b[4];
-      ldmatrix_x4(b, reinterpret_cast<const bf16*>(
-                         tk + sm90::sw64_offset(rb + kt * 16 + lane % 8 + 8 * (lane / 16),
-                                                16 * ks + 8 * ((lane / 8) % 2))));
-      mma_bf16(sacc[2 * kt], qa[ks], b[0], b[1]);
-      if (2 * kt + 1 < 7) mma_bf16(sacc[2 * kt + 1], qa[ks], b[2], b[3]);
-    }
-
-  // which scores pair tokens of different regions: bit nt * 4 + i
-  uint32_t differ = 0;
-  if (masked) {
-    int rrow[2];
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi)
-      rrow[hi] = __shfl_sync(0xffffffffu, wq < 2 ? rl : rh, min(row0 + 8 * hi, N - 1) % 32);
-#pragma unroll
-    for (int nt = 0; nt < 7; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kr = __shfl_sync(0xffffffffu, nt < 4 ? rl : rh,
-                                   min(8 * nt + 2 * t + j, N - 1) % 32);
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi)
-          if (kr != rrow[hi]) differ |= 1u << (nt * 4 + hi * 2 + j);
-      }
-  }
-
-  // + bias + mask, -inf past the window; row softmax over the four lanes
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nt = 0; nt < 7; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = 8 * nt + 2 * t + i % 2;
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bz[nt][i / 2]));
-      float sc = sacc[nt][i] + (i % 2 ? b.y : b.x);
-      sc += (differ >> (nt * 4 + i)) & 1u ? NEG : 0.0f;
-      sc = key < N ? sc : -INFINITY;
-      sacc[nt][i] = sc;
-      m[i / 2] = fmaxf(m[i / 2], sc);
-    }
-  float l[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 1));
-    m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 2));
-  }
-#pragma unroll
-  for (int nt = 0; nt < 7; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sacc[nt][i] = __expf(sacc[nt][i] - m[i / 2]);
-      l[i / 2] += sacc[nt][i];
-    }
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
-    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
-    l[hi] = 1.0f / l[hi];
-  }
-
-  // p v: p (rounded to bf16) as the A operand, keys in k-steps of 16
-  float o[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[nt][i] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    uint32_t a[4];
-    a[0] = pack_bf16(sacc[2 * ks][0] * l[0], sacc[2 * ks][1] * l[0]);
-    a[1] = pack_bf16(sacc[2 * ks][2] * l[1], sacc[2 * ks][3] * l[1]);
-    if (2 * ks + 1 < 7) {
-      a[2] = pack_bf16(sacc[2 * ks + 1][0] * l[0], sacc[2 * ks + 1][1] * l[0]);
-      a[3] = pack_bf16(sacc[2 * ks + 1][2] * l[1], sacc[2 * ks + 1][3] * l[1]);
-    } else {
-      a[2] = a[3] = 0u;
-    }
-#pragma unroll
-    for (int dp = 0; dp < 2; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(
-                               tv + sm90::sw64_offset(rb + 16 * ks + lane % 16,
-                                                      16 * dp + 8 * (lane / 16))));
-      mma_bf16(o[2 * dp], a, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-  // rounded once; rows past the window are not stored
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int row = row0 + 8 * hi, col = col0 + 8 * nt + 2 * t;
-      if (row < N)
-        *reinterpret_cast<uint32_t*>(ao + (col / 64) * tb + sm90::sw128_offset(rb + row, col % 64)) =
-            pack_bf16(o[nt][2 * hi], o[nt][2 * hi + 1]);
-    }
-}
-
 // A persistent block walks tiles blockIdx.x, + gridDim.x, ... of G windows;
 // the CS warpgroups g CS .. g CS + CS - 1 take window g of a tile, in its own
 // shared memory, and meet the other windows' warpgroups only in the ring:
@@ -490,32 +340,7 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   const float scale = round_to<bf16>(QK_SCALE);
   // the window's warpgroups meet here
   auto sync_wg = [g] { sm90::named_barrier(1 + g, 128 * P::CS); };
-  // Uses walked, and the last whose products may still be in flight (-1:
-  // none). A warp releases a use once the products issued after it have
-  // waited for it (wgmma_wait<1>), so a use's products run under the next
-  // use's wait; thread 0 tops the ring up to STAGES - 1 uses ahead, which
-  // waits only for releases that every warp makes before it can wait.
-  int use = 0, pending = -1;
-  // Wait for use `use` to land; returns its slot's shared address.
-  auto acquire = [&]() {
-    if (threadIdx.x == 0) issue_upto(use + P::STAGES - 1);
-    __syncwarp();
-    sm90::mbar_wait(full + use % P::STAGES, (use / P::STAGES) & 1);
-    return base + P::RING + (use % P::STAGES) * P::SLOT;
-  };
-  // After this warpgroup's products on use `use` are committed.
-  auto retire = [&]() {
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();
-    sm90::mbar_arrive_if(empty + (pending + P::STAGES) % P::STAGES, lane == 0 && pending >= 0);
-    pending = use++;
-  };
-  // Every product done, every use released.
-  auto drain = [&]() {
-    sm90::wgmma_wait<0>();
-    sm90::mbar_arrive_if(empty + (pending + P::STAGES) % P::STAGES, lane == 0 && pending >= 0);
-    pending = -1;
-  };
+  RingReader<P::STAGES, P::SLOT> ring{full, empty, base + P::RING};
 
   if (threadIdx.x == 0) issue_upto(P::STAGES - 1);  // the first slices land under LN1
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -565,7 +390,7 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
       if (attends) head_bias(bias + static_cast<size_t>(h) * N * N, wq, bz);
 #pragma unroll
       for (int ku = 0; ku < P::UQ; ++ku) {
-        const uint32_t slot = acquire();
+        const uint32_t slot = ring.acquire(issue_upto);
         sm90::wgmma_fence();
 #pragma unroll
         for (int u = 0; u < P::KQ; ++u) {
@@ -577,31 +402,19 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
               sm90::wgmma_ss(acc, sm90::desc_add(da_ln, kb * P::TB + k * 2),
                              sm90::desc_add(db, k * 2), kb > 0 || k > 0);
         }
-        retire();
+        ring.retire();
       }
-      drain();
+      ring.drain();
       sm90::fence_regs(acc);
       // one set: the last head's attention must be done with it (two: the
       // barrier after the last head's epilogue saw the attention before that)
       if constexpr (P::QB == 1) sync_wg();
       // + bqkv, rounded; q * scale rounded; rows past the window zero
-#pragma unroll
-      for (int j = 0; j < P::NQ / 8; ++j) {
-        const int col = cs * P::NQ + 8 * j + ec, which = col / HD, d = col % HD;
-        const float2 b = *reinterpret_cast<const float2*>(bqkv + which * C + h * HD + d);
-        const float mul = which == 0 ? scale : 1.0f;
-#pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int row = er + 8 * hi;
-          const float v0 = round_to<bf16>(acc[4 * j + 2 * hi] + b.x);
-          const float v1 = round_to<bf16>(acc[4 * j + 2 * hi + 1] + b.y);
-          *reinterpret_cast<uint32_t*>(qkv + which * P::QT + sm90::sw64_offset(row, d)) =
-              row < N ? pack_bf16(which == 0 ? v0 * mul : v0, which == 0 ? v1 * mul : v1) : 0u;
-        }
-      }
+      store_qkv<C, P::NQ>(acc, bqkv, h, cs * P::NQ, scale, qkv, er, ec);
       sync_wg();
       if (has && attends)
-        attend_rows(qkv, P::QT, 0, wq, bz, rl, rh, region != nullptr, my + P::AO, P::TB, h * HD);
+        attend_rows(qkv, P::QT, 0, wq, bz, region != nullptr ? region_differ(wq, rl, rh) : 0u,
+                    my + P::AO, P::TB, h * HD);
     }
     sm90::fence_proxy_async();
     sync_wg();                          // the attention-output tile is whole
@@ -614,17 +427,17 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
     for (int kb = 0; kb < P::KB; ++kb) {
 #pragma unroll
       for (int p = 0; p < P::NP; ++p) {
-        const uint64_t db = sm90::sw128_desc(acquire() + cs * 96 * 128);
+        const uint64_t db = sm90::sw128_desc(ring.acquire(issue_upto) + cs * 96 * 128);
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 64; k += 16)
           if (kb * 64 + k < C)
             sm90::wgmma_ss(pacc[p], sm90::desc_add(da_ao, kb * P::TB + k * 2),
                            sm90::desc_add(db, k * 2), kb > 0 || k > 0);
-        retire();
+        ring.retire();
       }
     }
-    drain();
+    ring.drain();
 #pragma unroll
     for (int p = 0; p < P::NP; ++p) sm90::fence_regs(pacc[p]);
     sync_wg();                          // every product is done with the attention output
@@ -671,7 +484,7 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
       for (int z = 0; z < P::N1 / 2; ++z) a1[z] = 0.0f;
 #pragma unroll
       for (int ku = 0; ku < P::U1; ++ku) {
-        const uint32_t slot = acquire();
+        const uint32_t slot = ring.acquire(issue_upto);
         sm90::wgmma_fence();
 #pragma unroll
         for (int u = 0; u < P::K1; ++u) {
@@ -683,9 +496,9 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
               sm90::wgmma_ss(a1, sm90::desc_add(da_ln, kb * P::TB + k * 2),
                              sm90::desc_add(db, k * 2), kb > 0 || k > 0);
         }
-        retire();
+        ring.retire();
       }
-      drain();
+      ring.drain();
       sm90::fence_regs(a1);
       uint32_t frag[P::BH / 16][4];
       if constexpr (P::CS > 1) sync_wg();       // the last chunk's fc2 is done with the gelu tile
@@ -709,7 +522,7 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
       }
 #pragma unroll
       for (int p = 0; p < P::NP; ++p) {
-        const uint64_t db = sm90::sw128_desc(acquire() + cs * 96 * 128);
+        const uint64_t db = sm90::sw128_desc(ring.acquire(issue_upto) + cs * 96 * 128);
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < P::BH; k += 16) {
@@ -719,10 +532,10 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
             sm90::wgmma_ss(y[p], sm90::desc_add(sm90::sw128_desc(mine + P::GT), k * 2),
                            sm90::desc_add(db, k * 2), 1);
         }
-        retire();
+        ring.retire();
       }
     }
-    drain();
+    ring.drain();
 #pragma unroll
     for (int p = 0; p < P::NP; ++p) sm90::fence_regs(y[p]);
 
@@ -752,7 +565,7 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
 // ------------------------------------- bf16, one block a window -----
 //
 // PR 3's body, kept at C = 768 (swin_block()): 256 threads on one window;
-// the attention half is attn_block.cu's (swin_common.cuh: mma.sync, weight
+// the attention half is swin_common.cuh's one-window body (mma.sync, weight
 // chunks by cp.async one ahead), the MLP half mlp_hidden_walk in two passes
 // of 32 rows.
 

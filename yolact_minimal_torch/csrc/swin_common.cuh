@@ -4,8 +4,9 @@
 // float32 accumulators), the cp.async weight staging, and the bodies that
 // more than one kernel runs: the hidden-unit walk of the MLP half and the
 // per-head attention of a 49-token window, each for bf16 on the tensor cores
-// and for float32 on the CUDA cores (no TF32, sums in index order, so that a
-// float32 run on the card can be held to a CPU run).
+// (swin_block.cu's one-window body) and for float32 on the CUDA cores (no
+// TF32, sums in index order, so that a float32 run on the card can be held
+// to a CPU run).
 //
 // All block-level routines assume THREADS = 256 threads (8 warps).
 #pragma once

@@ -7,7 +7,10 @@ with `attention` the per-window, per-head softmax of `ops/window_attention.py`.
 `attn_block` launches the hand-written CUDA kernel (`csrc/attn_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `attn_block_plain`,
 for tensors on the CPU. It counts its kernel launches in
-`attn_block.launches`.
+`attn_block.launches`. `kernel_geometry` states the bf16 launch's grids (tiles
+of windows on persistent blocks at C = 96; two phases at C = 192, 384 and
+768: a block per head and chunk of windows, then persistent blocks over
+64-row tiles of the output) and `shared_bytes` their shared memory.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: qkv accumulates in float32, `+ bqkv` in float32, rounded to
@@ -20,7 +23,9 @@ wproj [C, C].
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +34,127 @@ from yolact_minimal_torch.ops import _build
 from yolact_minimal_torch.ops.swin_mlp import KERNEL_WIDTHS
 from yolact_minimal_torch.ops.window_attention import (KERNEL_HEAD_DIM, KERNEL_TOKENS,
                                                        window_attention_plain)
+
+# The bf16 kernels' shapes per row width C, as csrc/attn_block.cu compiles
+# them (`kernel_attributes` reports them from the compiled kernels). C = 96:
+# one tiled kernel, tiles of G windows, a warpgroup each, both weight
+# matrices in shared memory. C = 192, 384, 768: two phases; phase 1 has
+# HEAD_SHAPES warpgroups a block and x ring slots a warpgroup; phase 2 has
+# PROJ_SHAPES 64-row tiles a block at once, column groups a tile (a
+# warpgroup each), ring slots and groups of tiles held at once.
+TILED_WINDOWS = {96: 3}
+HEAD_SHAPES = {192: (3, 5), 384: (3, 5), 768: (2, 4)}
+PROJ_SHAPES = {192: (1, 2, 4, 2), 384: (3, 1, 6, 1), 768: (1, 2, 4, 1)}
+SHARED_MEMORY_LIMIT = 232448          # bytes a block may use on an H100
+WINDOW_ROWS = 56                      # a window's rows in the tiled kernel's x and output tiles
+ROW_TILE = 64                         # rows of a phase-2 tile
+
+
+def shared_bytes(c: int) -> tuple:
+    """Dynamic shared memory a block of each bf16 kernel at width c, as
+    csrc/attn_block.cu lays it out, 1 KB to align the base included.
+    Tiled (one kernel): the x and attention-output tiles (per 64-wide
+    k-block G windows WINDOW_ROWS rows apart and 8 rows more, 128 bytes a
+    row), per window the q, k, v tiles [64, 32], both weight matrices (per
+    head and k-block 96 q | k | v rows, per k-block C proj rows), bqkv and
+    bproj in float32, the barriers. Two phases: phase 1 the head's 96 rows
+    of wqkv and per warpgroup its x slots [64 rows, 64] and k, v tiles;
+    phase 2 its groups of row tiles, the ring of every column group's 96
+    proj rows and bproj."""
+    kb = -(-c // 64)
+    if c in TILED_WINDOWS:
+        g = TILED_WINDOWS[c]
+        tiles = 2 * kb * (g * WINDOW_ROWS + 8) * 128
+        weights = (c // 32) * kb * 96 * 128 + kb * c * 128
+        return (tiles + g * 3 * 64 * 64 + weights + 4 * c * 4 + (g + 1) * 8 + 1024,)
+    wgn, xs = HEAD_SHAPES[c]
+    heads = kb * 96 * 128 + wgn * (xs * 64 * 128 + 2 * 64 * 64) + (1 + 2 * wgn * xs) * 8 + 1024
+    rw, cs, stages, abuf = PROJ_SHAPES[c]
+    proj = abuf * rw * kb * 64 * 128 + stages * cs * 96 * 128 + c * 4 + \
+        (2 * stages + abuf) * 8 + 1024
+    return heads, proj
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """A bf16 launch: `blocks` persistent blocks walk `tiles` tiles of
+    `windows_per_tile` consecutive windows (the last may hold fewer); block b
+    takes tiles b, b + blocks, ..., `rounds` at most."""
+    bnw: int
+    windows_per_tile: int
+    tiles: int
+    blocks: int
+    rounds: int
+
+    def windows(self, block: int) -> List[range]:
+        """The windows of each tile block `block` walks, in its order."""
+        g = self.windows_per_tile
+        return [range(t * g, min(self.bnw, (t + 1) * g))
+                for t in range(block, self.tiles, self.blocks)]
+
+
+def tiled_geometry(bnw: int, g: int, sms: int) -> Geometry:
+    """Tiles of g windows, one persistent block a multiprocessor, or one a
+    tile where there are fewer tiles."""
+    tiles = -(-bnw // g)
+    blocks = min(tiles, sms)
+    return Geometry(bnw=bnw, windows_per_tile=g, tiles=tiles, blocks=blocks,
+                    rounds=-(-tiles // blocks))
+
+
+@dataclass(frozen=True)
+class TwoPhaseGeometry:
+    """The two bf16 launches: phase 1 runs `heads` x `chunks` blocks (block
+    b takes head b % heads and chunk b // heads) of `warpgroups` warpgroups,
+    each walking its own windows; phase 2 runs `proj_blocks` persistent
+    blocks over `row_tiles` tiles of ROW_TILE rows in groups of
+    `tiles_per_group` (block b takes groups b, b + proj_blocks, ...)."""
+    bnw: int
+    heads: int
+    chunks: int
+    warpgroups: int
+    row_tiles: int
+    tiles_per_group: int
+    proj_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.heads * self.chunks
+
+    def windows(self, block: int, warpgroup: int) -> range:
+        """The windows warpgroup `warpgroup` of phase-1 block `block` walks."""
+        stride = self.chunks * self.warpgroups
+        return range(block // self.heads + self.chunks * warpgroup, self.bnw, stride)
+
+    @property
+    def rounds(self) -> int:
+        """The most windows a phase-1 warpgroup walks."""
+        return -(-self.bnw // (self.chunks * self.warpgroups))
+
+    def tiles(self, block: int) -> List[range]:
+        """The groups of row tiles phase-2 block `block` takes, in its order."""
+        n = self.tiles_per_group
+        groups = -(-self.row_tiles // n)
+        return [range(g * n, min(self.row_tiles, (g + 1) * n))
+                for g in range(block, groups, self.proj_blocks)]
+
+
+@lru_cache(maxsize=64)
+def kernel_geometry(bnw: int, c: int, sms: int):
+    """The bf16 launch for bnw windows of width c on a card of `sms`
+    multiprocessors, as csrc/attn_block.cu computes it: a Geometry of tiles
+    of G windows at C = 96, a TwoPhaseGeometry at C = 192, 384 and 768."""
+    if bnw <= 0 or c not in KERNEL_WIDTHS or sms <= 0:
+        raise ValueError(f'kernel_geometry: bnw={bnw}, c={c}, sms={sms}')
+    if c in TILED_WINDOWS:
+        return tiled_geometry(bnw, TILED_WINDOWS[c], sms)
+    heads = c // KERNEL_HEAD_DIM
+    row_tiles = -(-bnw * KERNEL_TOKENS // ROW_TILE)
+    per_group = PROJ_SHAPES[c][0]
+    return TwoPhaseGeometry(bnw=bnw, heads=heads, chunks=max(1, sms // heads),
+                            warpgroups=HEAD_SHAPES[c][0], row_tiles=row_tiles,
+                            tiles_per_group=per_group,
+                            proj_blocks=min(-(-row_tiles // per_group), sms))
 
 
 def attn_block_plain(x, wqkv, bqkv, bias, region: Optional[torch.Tensor], wproj, bproj,
@@ -136,3 +262,25 @@ def attn_block(x, wqkv, bqkv, bias, region: Optional[torch.Tensor], wproj, bproj
 
 
 attn_block.launches = 0
+
+
+ATTRIBUTE_KEYS = ('threads', 'smem_bytes', 'registers', 'spill_bytes')
+
+
+def kernel_attributes(c: int) -> dict:
+    """The compiled bf16 kernels at width c: {'tiled': ...} at C = 96, else
+    {'heads': ..., 'proj': ...} for the two phases; each the threads and
+    dynamic shared memory bytes a block and the registers and local (spill)
+    bytes a thread."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f'kernel_attributes: C in {KERNEL_WIDTHS}, got {c}')
+    fn = _build.load('attn_block').attn_block_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    names = ('tiled',) if c in TILED_WINDOWS else ('heads', 'proj')
+    attrs = {}
+    for which, name in enumerate(names):
+        out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+        _build.launch(fn, c, which, ctypes.addressof(out))
+        attrs[name] = dict(zip(ATTRIBUTE_KEYS, out))
+    return attrs

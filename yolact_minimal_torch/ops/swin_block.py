@@ -28,16 +28,16 @@ keeps them.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from yolact_minimal_torch.ops import _build
-from yolact_minimal_torch.ops.attn_block import (check_kernel_shape, check_params,
-                                                 check_per_window, check_windows)
+from yolact_minimal_torch.ops.attn_block import (Geometry, check_kernel_shape, check_params,
+                                                 check_per_window, check_windows,
+                                                 tiled_geometry)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS
 from yolact_minimal_torch.ops.window_attention import _sm_count, window_attention_plain
 
@@ -51,7 +51,6 @@ from yolact_minimal_torch.ops.window_attention import _sm_count, window_attentio
 KERNEL_SHAPES = {96: (3, 1, 3, 2, 2), 192: (2, 1, 4, 1, 3), 384: (1, 2, 4, 2, 3)}
 SCRATCH_WIDTHS = (768,)
 TOKENS = 49
-SHARED_MEMORY_LIMIT = 232448          # bytes a block may use on an H100
 WEIGHT_BOX_ROWS = (32, 96, 64, 96)    # TMA boxes of wqkv, wproj, k1, k2 (at most 256)
 
 
@@ -79,24 +78,6 @@ def shared_bytes(c: int) -> int:
     return g * window + stages * slot + (0 if tail else barriers) + 1024
 
 
-@dataclass(frozen=True)
-class Geometry:
-    """The bf16 launch: `blocks` persistent blocks walk `tiles` tiles of
-    `windows_per_tile` consecutive windows (the last may hold fewer); block b
-    takes tiles b, b + blocks, ..., `rounds` at most."""
-    bnw: int
-    windows_per_tile: int
-    tiles: int
-    blocks: int
-    rounds: int
-
-    def windows(self, block: int) -> List[range]:
-        """The windows of each tile block `block` walks, in its order."""
-        g = self.windows_per_tile
-        return [range(t * g, min(self.bnw, (t + 1) * g))
-                for t in range(block, self.tiles, self.blocks)]
-
-
 @lru_cache(maxsize=64)
 def kernel_geometry(bnw: int, c: int, sms: int) -> Geometry:
     """The bf16 kernel's launch for bnw windows of width c on a card of `sms`
@@ -107,11 +88,7 @@ def kernel_geometry(bnw: int, c: int, sms: int) -> Geometry:
         raise ValueError(f'kernel_geometry: bnw={bnw}, c={c}, sms={sms}')
     if c not in KERNEL_SHAPES:
         return Geometry(bnw=bnw, windows_per_tile=1, tiles=bnw, blocks=bnw, rounds=1)
-    g = KERNEL_SHAPES[c][0]
-    tiles = -(-bnw // g)
-    blocks = min(tiles, sms)
-    return Geometry(bnw=bnw, windows_per_tile=g, tiles=tiles, blocks=blocks,
-                    rounds=-(-tiles // blocks))
+    return tiled_geometry(bnw, KERNEL_SHAPES[c][0], sms)
 
 
 def swin_block_plain(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bqkv,
