@@ -15,7 +15,10 @@ Phases, in order; any failure exits nonzero:
      rowmask and once without), the two block kernels beside the times of
      what they replace, the MLP kernel beside a composition of PyTorch calls,
      the window-attention, MLP and both block kernels with their launch
-     geometry and a check that two launches agree bit for bit; the mask
+     geometry and a check that two launches agree bit for bit; the
+     suppression kernel with its launch geometry on input (a), a fixture with
+     invalid slots and zero-area boxes, and (b), all valid, exact on both and
+     timed with events and in device time; the mask
      kernel with its launch geometry on input (a), a fixture with crop, and
      (b), the same without, and after phase 4 on (c), the res50 path's own
      slate, each timed with events and in device time;
@@ -51,16 +54,17 @@ The line before the last is a JSON object {"kernels": [...]}; the last is
 In the kernels line `max_abs_err` is the largest |kernel - plain| over the
 output; for the bool masks of mask_finalize that is 0 or 1, and the stated
 tolerance holds `mismatch_frac`, the share of mask pixels that differ.
-mask_finalize's `ms` is input (a); `inputs` has (a)-(c). `launches` counts
+suppression_iou_max's and mask_finalize's `ms` are input (a); `inputs` has
+all of each one's inputs. `launches` counts
 the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
 CLI's, res50_coco/cli, too). `bound_ms` is held to the
 peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
-around one call, the wrapper's host work included; window attention, the
-mask kernel and both block kernels also have `device_ms`, the kernel's
-device time under torch.profiler (window attention also SDPA's,
+around one call, the wrapper's host work included; the suppression,
+window-attention, mask and both block kernels also have `device_ms`, the
+kernel's device time under torch.profiler (window attention also SDPA's,
 `library_device_ms`), since the host's launch overhead sets a floor under
 the event time.
 """
@@ -233,12 +237,12 @@ def phase_build():
     print(f'built {sorted(libs)} in {time.perf_counter() - t0:.2f} s')
 
 
-def check_suppression(dev):
-    """Kernel 1 at [B*C, K] = [1280, 200] with zero-area and invalid
-    candidates; must equal the plain version exactly, NaN positions too."""
+def _suppression_inputs(dev, all_valid):
+    """Kernel 1's inputs at [B*C, K] = [1280, 200]: (a) the fixture, boxes
+    0-0.4 wide, 5 % of them zero-area (0/0 pairs), 20 % of the slots and every
+    seventh row invalid; (b) all valid, as the res50 path's rows are (with
+    >= 200 anchors above the threshold every class row is full)."""
     import torch
-    from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
-                                                      suppression_iou_max_plain)
     g = torch.Generator(device=dev).manual_seed(0)
     rows, k = BATCH * 80, 200
     xy = torch.rand(2, rows, k, device=dev, generator=g) * 0.8
@@ -246,36 +250,66 @@ def check_suppression(dev):
     x1, y1 = xy[0].contiguous(), xy[1].contiguous()
     x2, y2 = (x1 + wh[0]).clamp(max=1.0), (y1 + wh[1]).clamp(max=1.0)
     flat = torch.rand(rows, k, device=dev, generator=g) < 0.05
+    valid = torch.rand(rows, k, device=dev, generator=g) > 0.2
+    if all_valid:
+        return x1, y1, x2, y2, torch.ones_like(valid)
     for t in (x1, y1, x2, y2):
         t[flat] = 1.0                    # clipped fully off-image: 0/0 pairs
-    valid = torch.rand(rows, k, device=dev, generator=g) > 0.2
     valid[::7] = False                   # whole rows without candidates
-    args = (x1, y1, x2, y2, valid)
+    return x1, y1, x2, y2, valid
 
-    got = suppression_iou_max(*args)
-    torch.cuda.synchronize()
-    ref = suppression_iou_max_plain(*args)
-    nan_equal = torch.equal(torch.isnan(got), torch.isnan(ref))
-    finite = ~torch.isnan(ref)
-    err = (got[finite] - ref[finite]).abs().max().item()
-    _check(torch.isnan(ref).any().item(), 'kernel 1 fixture has no NaN pair')
-    _check(nan_equal and err == 0.0,
-           f'suppression kernel disagrees: nan_equal={nan_equal} max_abs_err={err}')
 
-    ms = _time_ms(lambda: suppression_iou_max(*args))
-    plain_ms = _time_ms(lambda: suppression_iou_max_plain(*args))
-    vi = valid.to(torch.int64)
-    # valid pairs j < i per row: C(n_valid, 2); ~12 fp32 ops per pair IoU
-    pairs = (vi.sum(1) * (vi.sum(1) - 1) // 2).sum().item()
-    bound, by = _bound_ms(rows * k * (4 * 4 + 1 + 4), pairs * 12, FP32_PEAK)
-    print(f'kernel suppression_iou_max [{rows}, {k}]: exact (NaN positions '
-          f'equal), {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by})')
+def check_suppression(dev):
+    """Kernel 1 at [B*C, K] = [1280, 200] on input (a), the fixture with
+    zero-area and invalid candidates, and (b), all valid; must equal the plain
+    version exactly on both, NaN positions too. Prints the launch geometry
+    and each input's event and device time."""
+    import torch
+    from yolact_minimal_torch.ops.suppression import (kernel_geometry, suppression_iou_max,
+                                                      suppression_iou_max_plain)
+    inputs = {}
+    for key, what, all_valid in (('a_fixture', '(a) fixture', False),
+                                 ('b_all_valid', '(b) all valid', True)):
+        args = _suppression_inputs(dev, all_valid)
+        x1, _, _, _, valid = args
+        rows, k = x1.shape
+        got = suppression_iou_max(*args)
+        torch.cuda.synchronize()
+        ref = suppression_iou_max_plain(*args)
+        nan_equal = torch.equal(torch.isnan(got), torch.isnan(ref))
+        finite = ~torch.isnan(ref)
+        err = (got[finite] - ref[finite]).abs().max().item()
+        _check(all_valid or torch.isnan(ref).any().item(), 'kernel 1 fixture has no NaN pair')
+        _check(nan_equal and err == 0.0,
+               f'suppression kernel disagrees on {what}: nan_equal={nan_equal} max_abs_err={err}')
+
+        def call(args=args):
+            return suppression_iou_max(*args)
+        ms, dev_ms = _time_ms(call), _device_ms(call)
+        plain_ms = _time_ms(lambda: suppression_iou_max_plain(*args), warmup=1)
+        vi = valid.to(torch.int64)
+        # valid pairs j < i per row: C(n_valid, 2); ~12 fp32 ops per pair IoU
+        pairs = (vi.sum(1) * (vi.sum(1) - 1) // 2).sum().item()
+        bound, by = _bound_ms(rows * k * (4 * 4 + 1 + 4), pairs * 12, FP32_PEAK)
+        print(f'kernel suppression_iou_max [{rows}, {k}] {what}: exact (NaN positions '
+              f'equal), {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+              f'bound {bound:.5f} ms ({by}, {pairs} valid pairs)')
+        inputs[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, pairs=pairs, max_abs_err=err)
+    geo = kernel_geometry(rows, k, dev.index or 0)
+    print(f'kernel suppression_iou_max geometry: {geo["blocks"]} blocks (one a row) of '
+          f'{geo["threads"]} threads, {geo["smem_bytes"]} B of shared memory a block, '
+          f'{geo["blocks_per_sm"]} resident a multiprocessor, {geo["registers"]} registers, '
+          f'{geo["spill_bytes"]} B spill')
+    a = inputs['a_fixture']
     return dict(name='suppression_iou_max', route='cuda',
                 source='yolact_minimal_torch/csrc/suppression.cu',
                 replaces='yolact_minimal_tpu/ops/pallas_nms.py:67',
-                max_abs_err=err, agreement='exact, NaN positions equal',
-                ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                peak=FP32_PEAK, library_ms=None)
+                max_abs_err=max(v['max_abs_err'] for v in inputs.values()),
+                agreement='exact, NaN positions equal, on inputs (a) and (b)',
+                ms=a['ms'], kernel_ms=a['ms'], device_ms=a['device_ms'], plain_ms=a['plain_ms'],
+                bound_ms=a['bound_ms'], bound_by=a['bound_by'], peak=FP32_PEAK,
+                library_ms=None, geometry=geo, inputs=inputs)
 
 
 def _mask_fixture(dev):

@@ -32,26 +32,90 @@ def card():
     return torch.device('cuda')
 
 
-def test_suppression_kernel_equals_plain(card):
-    g = torch.Generator(device=card).manual_seed(0)
-    rows, k = 160, 200
-    xy = torch.rand(2, rows, k, device=card, generator=g) * 0.8
-    wh = torch.rand(2, rows, k, device=card, generator=g) * 0.4
-    x1, y1 = xy[0].contiguous(), xy[1].contiguous()
-    x2, y2 = (x1 + wh[0]).clamp(max=1), (y1 + wh[1]).clamp(max=1)
-    flat = torch.rand(rows, k, device=card, generator=g) < 0.05
-    for t in (x1, y1, x2, y2):
-        t[flat] = 1.0                           # zero-area boxes: NaN pairs
-    valid = torch.rand(rows, k, device=card, generator=g) > 0.2
-    valid[3] = False
+def _suppression_inputs(rows, k, validity, boxes, rng):
+    """[rows, k] planes and validity for the suppression kernel. 'zero_area':
+    random boxes, 5 % of them flat (zero-area pairs give 0/0 = NaN);
+    'inverted': 30 % with x2 < x1 or y2 < y1 (negative areas), some mirrored
+    copies of another box (areas that cancel: NaN pairs without a flat box)."""
+    xy = rng.uniform(0, 0.8, size=(2, rows, k))
+    wh = rng.uniform(0, 0.4, size=(2, rows, k))
+    x1, y1 = xy
+    x2, y2 = np.minimum(x1 + wh[0], 1.0), np.minimum(y1 + wh[1], 1.0)
+    if boxes == 'zero_area':
+        flat = rng.rand(rows, k) < 0.05
+        x1[flat] = x2[flat] = y1[flat] = y2[flat] = 1.0
+        thin = rng.rand(rows, k) < 0.02             # zero width, elsewhere
+        x2[thin] = x1[thin]
+    else:
+        flip_x, flip_y = rng.rand(2, rows, k) < 0.3
+        x1[flip_x], x2[flip_x] = x2[flip_x], x1[flip_x].copy()
+        y1[flip_y], y2[flip_y] = y2[flip_y], y1[flip_y].copy()
+        mirror = rng.rand(rows, k) < 0.05          # box j's x extent reversed at j + 1
+        mirror[:, -1] = False
+        src = np.roll(mirror, 1, axis=1)
+        x1[src], x2[src], y1[src], y2[src] = x2[mirror], x1[mirror], y1[mirror], y2[mirror]
+    score = rng.rand(rows, k)
+    valid = {'scattered': score > 0.2, 'all_valid': np.ones((rows, k), bool),
+             'all_invalid': np.zeros((rows, k), bool),
+             # the caller's rows: sorted by score, the passing ones first
+             'prefix': np.arange(k)[None, :] < rng.randint(0, k + 1, size=(rows, 1))}[validity]
+    planes = [np.ascontiguousarray(p, dtype=np.float32) for p in (x1, y1, x2, y2)]
+    return planes, valid
+
+
+@pytest.mark.parametrize('boxes', ['zero_area', 'inverted'])
+@pytest.mark.parametrize('validity', ['scattered', 'all_valid', 'all_invalid', 'prefix'])
+@pytest.mark.parametrize('rows,k', [(160, 200), (1, 1), (3, 37), (17, 2048)])
+def test_suppression_kernel_equals_plain(card, rows, k, validity, boxes):
+    rng = np.random.RandomState(rows * 7 + k)
+    planes, valid = _suppression_inputs(rows, k, validity, boxes, rng)
+    x1, y1, x2, y2 = (torch.from_numpy(p).to(card) for p in planes)
+    valid = torch.from_numpy(valid).to(card)
     before = suppression_iou_max.launches
     got = suppression_iou_max(x1, y1, x2, y2, valid)
     torch.cuda.synchronize()
     assert suppression_iou_max.launches == before + 1
     ref = suppression_iou_max_plain(x1, y1, x2, y2, valid)
-    assert torch.isnan(ref).any()
+    if rows * k >= 160 * 200 and validity != 'all_invalid':
+        assert torch.isnan(ref).any()
     # exact, NaN positions included: the kernel rounds every op as PyTorch does
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    assert not got[~valid].any()
+
+
+@pytest.mark.parametrize('scale', [1.0, 1000.0, 2.0 ** -12])
+def test_suppression_kernel_pair_quotients(card, scale):
+    """Rows of two valid boxes: out[:, 1] is one pair's IoU, so every quotient
+    the kernel divides shows, on 2^20 pairs a scale (2^-12 puts coordinates
+    on both sides of the lower bound of the kernel's fast rows); half of the
+    second boxes are jittered copies of the first (IoU near 1)."""
+    rng = np.random.RandomState(int(np.log2(scale)) + 40)
+    rows = 1 << 20
+    xy = rng.uniform(0, 0.8, size=(2, rows, 2))
+    wh = rng.uniform(0, 0.4, size=(2, rows, 2))
+    near = rng.rand(rows) < 0.5
+    xy[:, near, 1] = xy[:, near, 0] + rng.uniform(-0.01, 0.01, size=(2, int(near.sum())))
+    wh[:, near, 1] = wh[:, near, 0] + rng.uniform(-0.01, 0.01, size=(2, int(near.sum())))
+    planes = [torch.from_numpy(np.ascontiguousarray(p * scale, dtype=np.float32)).to(card)
+              for p in (xy[0], xy[1], xy[0] + np.abs(wh[0]), xy[1] + np.abs(wh[1]))]
+    valid = torch.ones(rows, 2, dtype=torch.bool, device=card)
+    got = suppression_iou_max(*planes, valid)
+    torch.cuda.synchronize()
+    ref = suppression_iou_max_plain(*planes, valid)
+    assert (ref[:, 1] > 0.5).float().mean() > 0.4
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+
+
+def test_suppression_kernel_geometry(card):
+    from yolact_minimal_torch.ops.suppression import kernel_geometry
+    for rows, k in ((1280, 200), (17, 2048), (1, 1)):
+        geo = kernel_geometry(rows, k, card.index or 0)
+        # one block a row; csrc/suppression.cu::smem_bytes: 42 bytes a slot
+        # and two 4-byte masks a chunk of 32
+        assert geo['blocks'] == rows and geo['threads'] % 32 == 0
+        assert geo['smem_bytes'] == 42 * k + 8 * ((k + 31) // 32)
+        assert geo['blocks_per_sm'] >= 1 and 0 < geo['registers'] <= 255
+        assert geo['spill_bytes'] == 0
 
 
 # Boxes that the mask kernel's output windows treat as edge cases: on the

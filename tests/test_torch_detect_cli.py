@@ -1,7 +1,8 @@
 """The port's detect CLI without cv2: `val_aug` against the JAX package's cv2
 `val_aug` (equal with cv2, its F.interpolate fallback without), the numpy
 blend and rectangles of `draw_img` against cv2's, the cv2 and PIL image
-paths, and `detect.main` on the CPU with cv2, then cv2 and PIL, hidden."""
+paths, `detect.main` on the CPU with cv2, then cv2 and PIL, hidden, and its
+`--cutout` files against those of the JAX `draw_img`."""
 import sys
 
 import cv2
@@ -113,6 +114,59 @@ def test_detect_cli_runs_without_cv2_or_pil(tmp_path, monkeypatch, capsys):
     _hide(monkeypatch, 'PIL')
     with pytest.raises(SystemExit, match='neither cv2 nor PIL imports'):
         main(['--weight', 'missing_res50_coco.pth', '--image', str(images), '--device', 'cpu'])
+
+
+class _Cv2SkipsEmpty:
+    """cv2 as the JAX `draw_img` sees it, except that an empty image is not
+    written: cv2.imwrite raises on one, so the JAX `draw_img` stops at the
+    first detection whose box crops to nothing, where the port writes no
+    file for it and goes on."""
+
+    def __getattr__(self, name):
+        return getattr(cv2, name)
+
+    @staticmethod
+    def imwrite(path, img):
+        return img.size == 0 or cv2.imwrite(path, img)
+
+
+def test_detect_cli_cutout_writes_the_files_jax_draw_img_names(tmp_path, monkeypatch):
+    """--cutout writes `<basename>_total_obj.jpg` and `<basename>_<i>.jpg`
+    under results/images/: the files, names and pixels that the JAX package's
+    `draw_img` writes for the same detections, and none for a box that lies
+    outside the image (the image is 60 high, the boxes span the padded 80)."""
+    from yolact_minimal_tpu.utils import visualize as jax_visualize
+    from yolact_minimal_torch import detect
+    images = tmp_path / 'images'
+    images.mkdir()
+    img = np.random.RandomState(2).randint(0, 256, (60, 80, 3)).astype(np.uint8)
+    image_io.imwrite(images / 'one.png', img)
+    weight = _weights(tmp_path)
+    jax_dir = tmp_path / 'jax'
+    drawn = []
+
+    def draw_both(ids, scores, boxes, masks, img_origin, cfg, img_name=None):
+        h, w = img_origin.shape[:2]
+        b = np.clip(np.asarray(boxes).astype(int), 0, [w, h, w, h])
+        drawn.append((img_name, [i for i in range(len(ids))
+                                 if b[i, 2] > b[i, 0] and b[i, 3] > b[i, 1]], len(ids)))
+        jax_visualize.draw_img(ids, scores, boxes, masks, img_origin.copy(), cfg,
+                               img_name=img_name, out_dir=str(jax_dir))
+        return visualize.draw_img(ids, scores, boxes, masks, img_origin, cfg,
+                                  img_name=img_name)
+    monkeypatch.setattr(detect, 'draw_img', draw_both)
+    monkeypatch.setattr(jax_visualize, 'cv2', _Cv2SkipsEmpty())
+    monkeypatch.chdir(tmp_path)
+    detect.main(['--weight', str(weight), '--image', str(images), '--device', 'cpu',
+                 '--img_size', '64', '--visual_thre', '0', '--cutout'])
+    [(name, nonempty, n)] = drawn
+    assert name == 'one.png' and 0 < len(nonempty) < n     # some boxes crop to nothing
+    out_dir = tmp_path / 'results' / 'images'
+    cutouts = {'one.png_total_obj.jpg'} | {f'one.png_{i}.jpg' for i in nonempty}
+    assert {p.name for p in out_dir.iterdir()} == cutouts | {'one.png'}
+    assert {p.name for p in jax_dir.iterdir()} == cutouts
+    for file in cutouts:
+        assert np.array_equal(image_io.imread(out_dir / file), cv2.imread(str(jax_dir / file)))
 
 
 def test_image_io_backends_agree(tmp_path, monkeypatch):

@@ -24,14 +24,16 @@ from yolact_minimal_torch.utils import image_io
 from yolact_minimal_torch.utils.visualize import draw_img
 
 
-def detect_one(detector, cfg, img_origin):
-    """One BGR image -> the image with its detections drawn."""
+def detect_one(detector, cfg, img_origin, img_name=None):
+    """One BGR image -> the image with its detections drawn. With
+    `cfg.cutout`, the cutouts are written as `<img_name>_total_obj.jpg` and
+    `<img_name>_<i>.jpg` under results/images/."""
     h, w = img_origin.shape[:2]
     dets, masks_proto, _ = detector(val_aug(img_origin, cfg.img_size)[None])
     det0 = type(dets)(*(x[0] for x in dets))
     ids, scores, boxes, masks = detector.postprocess_host(
         det0, masks_proto[0], h, w, visual_thre=cfg.visual_thre)
-    return draw_img(ids, scores, boxes, masks, img_origin, cfg)
+    return draw_img(ids, scores, boxes, masks, img_origin, cfg, img_name=img_name)
 
 
 def main(argv=None):
@@ -73,8 +75,9 @@ def main(argv=None):
             img = image_io.imread(path)
         except (OSError, ValueError) as e:
             raise SystemExit(f'Cannot read {path}: {e}') from None
-        out = detect_one(detector, cfg, img)
-        image_io.imwrite(osp.join('results/images', osp.basename(path)), out)
+        name = osp.basename(path)
+        out = detect_one(detector, cfg, img, img_name=name)
+        image_io.imwrite(osp.join('results/images', name), out)
         print(f'\rDetecting: {i + 1}/{len(paths)}', end='')
     if t0 is not None:
         print(f'\nfps: {(len(paths) - 1) / (time.perf_counter() - t0):.2f}', end='')

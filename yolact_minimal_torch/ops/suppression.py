@@ -8,15 +8,20 @@ kernel launches in `suppression_iou_max.launches`.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from yolact_minimal_torch.ops import _build
 from yolact_minimal_torch.ops.boxes import box_iou
 
-# Largest row length the kernel takes: its shared memory (21 bytes per
-# candidate) stays below the 48 KB a block gets without opting in.
+# Largest row length the kernel takes: it keeps a candidate's compacted
+# position in 16 bits, and its shared memory (42 bytes a candidate, 86 KB at
+# 2048) stays below the 227 KB a block may opt in to.
 MAX_K = 2048
+
+GEOMETRY_KEYS = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+                 'spill_bytes')
 
 
 def suppression_iou_max_plain(x1, y1, x2, y2, valid) -> torch.Tensor:
@@ -59,17 +64,36 @@ def suppression_iou_max(x1, y1, x2, y2, valid) -> torch.Tensor:
     out = torch.empty_like(x1)
     if out.numel() == 0:
         return out
-    lib = _build.load('suppression')
-    fn = lib.suppression_iou_max
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        _build.launch(fn, x1.data_ptr(), y1.data_ptr(), x2.data_ptr(),
-                      y2.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        _build.launch(_entry('suppression_iou_max'), x1.data_ptr(), y1.data_ptr(),
+                      x2.data_ptr(), y2.data_ptr(), valid.data_ptr(), out.data_ptr(),
                       rows, k, stream)
     suppression_iou_max.launches += 1
     return out
 
 
 suppression_iou_max.launches = 0
+
+
+@lru_cache(maxsize=None)
+def _entry(name: str):
+    """An entry point of the built `csrc/suppression.cu`, its argument types
+    set once."""
+    fn = getattr(_build.load('suppression'), name)
+    fn.argtypes = {'suppression_iou_max': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 +
+                   [ctypes.c_void_p],
+                   'suppression_geometry': [ctypes.c_int] * 2 + [ctypes.c_void_p]}[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_geometry(rows: int, k: int, device_index: int = 0) -> dict:
+    """The kernel's launch for rows x k on card `device_index` (one block a
+    row): blocks, threads a block, dynamic shared bytes a block, resident
+    blocks a multiprocessor, and the registers and local (spill) bytes a
+    thread that the compiled kernel reports."""
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(device_index):
+        _build.launch(_entry('suppression_geometry'), rows, k, ctypes.addressof(out))
+    return dict(zip(GEOMETRY_KEYS, out))

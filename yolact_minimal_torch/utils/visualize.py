@@ -122,8 +122,10 @@ def draw_img(ids_p, scores_p, boxes_p, masks_p, img_origin, cfg,
                 one = masks_p[i][:, :, None] * img_origin
                 back = ((masks_p[i] == 0) * 255)[:, :, None].repeat(3, 2)
                 x1, y1, x2, y2 = boxes_p[i]
-                image_io.imwrite(osp.join(out_dir, f'{img_name}_{i}.jpg'),
-                                 (one + back)[y1:y2, x1:x2].astype(np.uint8))
+                crop = (one + back)[y1:y2, x1:x2]
+                if crop.size:       # a box outside the image crops to no image
+                    image_io.imwrite(osp.join(out_dir, f'{img_name}_{i}.jpg'),
+                                     crop.astype(np.uint8))
 
     if not cfg.hide_bbox:
         for i in reversed(range(num)):
