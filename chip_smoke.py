@@ -25,6 +25,15 @@ Phases, in order; any failure exits nonzero:
   3b. the detect CLI (yolact_minimal_torch.detect.main) on two seeded PNGs of
      different shapes with a seeded res50_coco .pth, from a temporary working
      directory: both drawn images must come back at their input shapes;
+  3c. the eval path: seeded res50_custom and res101_custom Detectors (544,
+     float32) written as .ckpt files by the port's save_checkpoint, then
+     `python -m yolact_minimal_torch.eval --weight W --img_size 544` on each
+     over the 48 images of custom_dataset/ (exit 0, box and mask rows
+     finite), res50_custom once more with --coco_api (both jsons, the 24
+     COCO stats); evaluate() in this process with the launch counters set
+     to 0 before (kernel 1 once a batch, kernel 2 never), eval img/s with
+     the host-tail share beside the card's name and power limit; the card's
+     float32 table (TF32 off) against the CPU's on the first 8 images;
   4. a main path at full width: res50_coco at 544, batch 16, seeded random
      weights, bf16: Detector.detect_fixed for a few batches (img/s, host
      clock, untraced), then Detector.__call__ + postprocess_host on two
@@ -59,8 +68,8 @@ all of each one's inputs. `launches` counts
 the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
-CLI's, res50_coco/cli, too). `bound_ms` is held to the
-peak named in `peak`. The swin kernels' top-level numbers are those of the
+CLI's, res50_coco/cli, and the eval path's, res50_custom/eval, too).
+`bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
 around one call, the wrapper's host work included; the suppression,
 window-attention, mask and both block kernels also have `device_ms`, the
@@ -70,6 +79,7 @@ the event time.
 """
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -99,6 +109,12 @@ MASK_MISMATCH = 1e-4
 BF16_REL_TOL = 5e-2
 BF16_SCORE_RTOL = 5e-2
 PROFILE_ITERS = 5
+# The eval phase: the configs the eval CLI runs at IMG on custom_dataset/ (48
+# images, cfg.val_bs 8), and the images on which the card's table is held
+# to the CPU's.
+EVAL_CONFIGS = ('res50_custom', 'res101_custom')
+EVAL_BS = 8
+EVAL_CPU_IMAGES = 8
 # The swin kernels against their plain versions, as a share of the plain
 # output's largest magnitude. float32: both sum up to 3072 products, in
 # another order. bf16: both round at the same places, so a difference is a
@@ -173,16 +189,22 @@ def _device_ms(fn, iters=20):
     """Device time of one call of fn: the CUDA kernels it launches, summed
     over `iters` calls under torch.profiler, over `iters`. Unlike _time_ms it
     leaves out the host's launch overhead, which sets a floor under a small
-    kernel's event time."""
+    kernel's event time. A trace that holds no kernel at all (seen for
+    ~10 us calls) measured nothing and is taken again, up to four times."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+    for _ in range(5):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            break
+    _check(total > 0, 'torch.profiler recorded no kernel of a call that launches one')
+    return total / iters / 1e3
 
 
 def _bound_ms(n_bytes, n_flops, peak):
@@ -227,6 +249,7 @@ def phase_env():
                                  for d in sorted(set(dists.get(name, ()))))
             libs.append(f'{name} is installed ({versions or "no distribution record"})')
     print(f'image libraries: {"; ".join(libs)}')
+    return smi.splitlines()[0]
 
 
 def phase_build():
@@ -259,11 +282,46 @@ def _suppression_inputs(dev, all_valid):
     return x1, y1, x2, y2, valid
 
 
+def _hold_suppression(what, args, got, timed=True):
+    """Kernel 1's output `got` on `args` against the plain version on the same
+    inputs: exact, NaN positions equal. When `timed`, times the kernel (events
+    and device) and the plain version on `args`. Returns the numbers."""
+    import torch
+    from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
+                                                      suppression_iou_max_plain)
+    x1, _, _, _, valid = args
+    rows, k = x1.shape
+    ref = suppression_iou_max_plain(*args)
+    nan_equal = torch.equal(torch.isnan(got), torch.isnan(ref))
+    finite = ~torch.isnan(ref)
+    err = (got[finite] - ref[finite]).abs().max().item() if finite.any() else 0.0
+    _check(nan_equal and err == 0.0,
+           f'suppression kernel disagrees on {what}: nan_equal={nan_equal} max_abs_err={err}')
+    if not timed:
+        print(f'kernel suppression_iou_max [{rows}, {k}] {what}: exact (NaN positions equal)')
+        return dict(shape=[rows, k], max_abs_err=err)
+
+    def call():
+        return suppression_iou_max(*args)
+    ms, dev_ms = _time_ms(call), _device_ms(call)
+    plain_ms = _time_ms(lambda: suppression_iou_max_plain(*args), warmup=1)
+    vi = valid.to(torch.int64)
+    # valid pairs j < i per row: C(n_valid, 2); ~12 fp32 ops per pair IoU
+    pairs = (vi.sum(1) * (vi.sum(1) - 1) // 2).sum().item()
+    bound, by = _bound_ms(rows * k * (4 * 4 + 1 + 4), pairs * 12, FP32_PEAK)
+    print(f'kernel suppression_iou_max [{rows}, {k}] {what}: exact (NaN positions '
+          f'equal), {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {bound:.5f} ms ({by}, {pairs} valid pairs)')
+    return dict(shape=[rows, k], ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, pairs=pairs, max_abs_err=err)
+
+
 def check_suppression(dev):
     """Kernel 1 at [B*C, K] = [1280, 200] on input (a), the fixture with
     zero-area and invalid candidates, and (b), all valid; must equal the plain
     version exactly on both, NaN positions too. Prints the launch geometry
-    and each input's event and device time."""
+    and each input's event and device time. Phase 3c adds input (c), the
+    planes the eval path gave the kernel."""
     import torch
     from yolact_minimal_torch.ops.suppression import (kernel_geometry, suppression_iou_max,
                                                       suppression_iou_max_plain)
@@ -271,31 +329,12 @@ def check_suppression(dev):
     for key, what, all_valid in (('a_fixture', '(a) fixture', False),
                                  ('b_all_valid', '(b) all valid', True)):
         args = _suppression_inputs(dev, all_valid)
-        x1, _, _, _, valid = args
-        rows, k = x1.shape
+        _check(all_valid or torch.isnan(suppression_iou_max_plain(*args)).any().item(),
+               'kernel 1 fixture has no NaN pair')
         got = suppression_iou_max(*args)
         torch.cuda.synchronize()
-        ref = suppression_iou_max_plain(*args)
-        nan_equal = torch.equal(torch.isnan(got), torch.isnan(ref))
-        finite = ~torch.isnan(ref)
-        err = (got[finite] - ref[finite]).abs().max().item()
-        _check(all_valid or torch.isnan(ref).any().item(), 'kernel 1 fixture has no NaN pair')
-        _check(nan_equal and err == 0.0,
-               f'suppression kernel disagrees on {what}: nan_equal={nan_equal} max_abs_err={err}')
-
-        def call(args=args):
-            return suppression_iou_max(*args)
-        ms, dev_ms = _time_ms(call), _device_ms(call)
-        plain_ms = _time_ms(lambda: suppression_iou_max_plain(*args), warmup=1)
-        vi = valid.to(torch.int64)
-        # valid pairs j < i per row: C(n_valid, 2); ~12 fp32 ops per pair IoU
-        pairs = (vi.sum(1) * (vi.sum(1) - 1) // 2).sum().item()
-        bound, by = _bound_ms(rows * k * (4 * 4 + 1 + 4), pairs * 12, FP32_PEAK)
-        print(f'kernel suppression_iou_max [{rows}, {k}] {what}: exact (NaN positions '
-              f'equal), {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-              f'bound {bound:.5f} ms ({by}, {pairs} valid pairs)')
-        inputs[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by, pairs=pairs, max_abs_err=err)
+        inputs[key] = _hold_suppression(what, args, got)
+    rows, k = inputs['a_fixture']['shape']
     geo = kernel_geometry(rows, k, dev.index or 0)
     print(f'kernel suppression_iou_max geometry: {geo["blocks"]} blocks (one a row) of '
           f'{geo["threads"]} threads, {geo["smem_bytes"]} B of shared memory a block, '
@@ -1208,6 +1247,246 @@ def phase_cli(dev):
     return launches
 
 
+def _eval_cli(args, cwd):
+    """`python -m yolact_minimal_torch.eval ARGS` in a subprocess from `cwd`, as a
+    user runs it; fails unless it exits 0. Returns (stdout, seconds)."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get('PYTHONPATH')) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'yolact_minimal_torch.eval', *args], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    _check(proc.returncode == 0, f'eval CLI {args} exited {proc.returncode}:\n'
+                                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    return proc.stdout, seconds
+
+
+def _table_rows(out):
+    """The box and mask rows of the mAP table the eval CLI printed, as floats."""
+    rows = {}
+    for line in out.splitlines():
+        cells = [c.strip() for c in line.strip().strip('|').split('|')]
+        if cells[0] in ('box', 'mask'):
+            rows[cells[0]] = [float(c) for c in cells[1:]]
+    _check(set(rows) == {'box', 'mask'} and all(len(r) == 11 for r in rows.values()),
+           f'no box and mask rows in the eval output:\n{out[-2000:]}')
+    _check(all(math.isfinite(v) and 0 <= v <= 100 for r in rows.values() for v in r),
+           f'eval table values outside [0, 100]: {rows}')
+    return rows
+
+
+def _cli_rate(out):
+    """The eval CLI's last progress line: (img/s, t_t, t_fetch, t_after_nms,
+    t_metric), the times in s a batch."""
+    m = re.findall(r'total fps: ([\d.]+) \| t_t: ([\d.]+) \| t_fetch: ([\d.]+) \| '
+                   r't_after_nms: ([\d.]+) \| t_metric: ([\d.]+)', out)
+    _check(m, 'the eval CLI printed no rate')
+    return tuple(float(x) for x in m[-1])
+
+
+def _rate_line(what, fps, t_t, t_fetch, t_after, t_metric, smi):
+    """The eval timer's means: t_t and t_fetch a batch, t_after and t_metric
+    an image."""
+    tail = EVAL_BS * (t_after + t_metric)
+    return (f'{what}: {fps:.2f} img/s ({t_t * 1e3:.3f} ms a batch of {EVAL_BS}; host tail '
+            f'after_nms {t_after * 1e3:.3f} + metric {t_metric * 1e3:.3f} ms an image, '
+            f'{tail / t_t:.3f} of the batch; waiting on the card (fetch) '
+            f'{t_fetch * 1e3:.3f} ms a batch, {t_fetch / t_t:.3f}; first batch left out) on {smi}')
+
+
+def _hold_slates(log_gpu, log_cpu):
+    """The card's slates against the CPU's, image by image: valid flags equal;
+    ids equal, boxes and scores within POST_ATOL; the upsampled masks of those
+    slots parting in less than MASK_MISMATCH of their pixels. A valid slot
+    that parts is exempt only where a measured near-tie explains it: each
+    side's pick stands in the other's slate with the same class, its box and
+    its score within POST_ATOL, and the two picks score within 3 POST_ATOL
+    (two scores that each move by POST_ATOL swap only when they lie within
+    2 POST_ATOL), so rounding alone ordered them. Exempt
+    slots are printed with both picks. Returns (largest score error, largest
+    mask mismatch, number of exempt slots)."""
+    import numpy as np
+
+    def found(d, cls, box, score):
+        ids, boxes, scores = d.ids.numpy(), d.boxes.numpy(), d.scores.numpy()
+        near = ((ids == cls) & d.valid.numpy() & (np.abs(scores - score) <= POST_ATOL)
+                & (np.abs(boxes - box).max(-1) <= POST_ATOL))
+        return bool(near.any())
+
+    score_err, mismatch, exempt = 0.0, 0.0, 0
+    for i, ((dg, og), (dc, oc)) in enumerate(zip(log_gpu, log_cpu)):
+        valid = dc.valid.numpy()
+        _check(np.array_equal(dg.valid.numpy(), valid),
+               f'eval image {i}: the card\'s valid slots differ from the CPU\'s')
+        ids_g, ids_c = dg.ids.numpy(), dc.ids.numpy()
+        s_g, s_c = dg.scores.numpy(), dc.scores.numpy()
+        b_g, b_c = dg.boxes.numpy(), dc.boxes.numpy()
+        tie = valid & ((ids_g != ids_c) | (np.abs(s_g - s_c) > POST_ATOL)
+                       | (np.abs(b_g - b_c).max(-1) > POST_ATOL))
+        for j in np.nonzero(tie)[0]:
+            explained = (abs(s_g[j] - s_c[j]) <= 3 * POST_ATOL
+                         and found(dc, ids_g[j], b_g[j], s_g[j])
+                         and found(dg, ids_c[j], b_c[j], s_c[j]))
+            print(f'  eval image {i} slot {j}: card class {ids_g[j]} score {s_g[j]!r}, cpu '
+                  f'class {ids_c[j]} score {s_c[j]!r}, gap {abs(s_g[j] - s_c[j]):.3g}: '
+                  f'{"a near-tie, exempt" if explained else "not a near-tie"}')
+            _check(explained, f'eval image {i} slot {j}: the card\'s slate differs from '
+                              f'the CPU\'s where no near-tie explains it')
+        same = ~tie
+        score_err = max(score_err, float(np.abs(s_g - s_c)[same].max(initial=0.0)))
+        box_err = float(np.abs(b_g - b_c)[same & valid].max(initial=0.0))
+        _check(score_err <= POST_ATOL and box_err <= POST_ATOL,
+               f'eval image {i}: scores part by {score_err}, boxes by {box_err} '
+               f'(limit {POST_ATOL})')
+        keep = same[valid]          # the masks come in the order of the valid slots
+        _check(og[3].shape == oc[3].shape, f'eval image {i}: mask shapes differ')
+        if keep.any():
+            mismatch = max(mismatch, float((og[3][keep] != oc[3][keep]).mean()))
+        _check(mismatch < MASK_MISMATCH, f'eval image {i}: masks part in {mismatch} of '
+                                         f'their pixels (limit {MASK_MISMATCH})')
+        exempt += int(tie.sum())
+    return score_err, mismatch, exempt
+
+
+def phase_eval(dev, smi, kernel1):
+    """The eval path on the card. Seeded res50_custom and res101_custom
+    Detectors (float32, 544) are written as .ckpt files by the port's
+    save_checkpoint; `python -m yolact_minimal_torch.eval --weight W
+    --img_size 544` runs on each over the 48 images of custom_dataset/ in a
+    subprocess, and res50_custom once more with --coco_api from a temporary
+    working directory (both jsons written, the COCO stats printed). Then in
+    this process: evaluate() on res50_custom with the launch counters set to
+    0 just before (kernel 1 launches once a batch), and evaluate() on the
+    first EVAL_CPU_IMAGES images on the card and on the CPU, float32 with
+    TF32 off: the two tables and the slates must agree (`_hold_slates`).
+    The planes kernel 1 got on the eval path, and what it gave, are recorded
+    in the counted run; after the counts are read each batch is held exactly
+    to the plain version and `kernel1` gains input (c). Returns the launch
+    counts."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.data.coco import COCODetection
+    from yolact_minimal_torch.eval import evaluate
+    from yolact_minimal_torch.ops import nms
+    from yolact_minimal_torch.pipeline import Detector, load_detector
+    from yolact_minimal_torch.utils import timer
+    from yolact_minimal_torch.utils.checkpoint import save_checkpoint
+    from yolact_minimal_torch.utils.weights import to_jax_variables
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = ['--val_imgs', os.path.join(root, 'custom_dataset', 'images'),
+            '--val_ann', os.path.join(root, 'custom_dataset', 'annotations.json')]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {}
+        for name in EVAL_CONFIGS:
+            det = Detector(get_config(name, img_size=IMG), device=dev, seed=0)
+            ckpts[name] = os.path.join(tmp, f'seeded_{name}_0.ckpt')
+            save_checkpoint(ckpts[name], to_jax_variables(det.model.state_dict()))
+            del det
+        torch.cuda.empty_cache()
+        for name, path in ckpts.items():
+            out, seconds = _eval_cli(['--weight', path, '--img_size', str(IMG)], root)
+            rows = _table_rows(out)
+            print(f'eval CLI {name} {IMG}, 48 images of custom_dataset/, val_bs {EVAL_BS}, '
+                  f'float32: exit 0 in {seconds:.2f} s (start-up, checkpoint read and model '
+                  f'build included); box row {rows["box"]}, mask row {rows["mask"]}')
+            print(_rate_line(f'  eval CLI {name} at {IMG}', *_cli_rate(out), smi))
+        work = os.path.join(tmp, 'work')
+        os.makedirs(work)
+        out, seconds = _eval_cli(['--weight', ckpts['res50_custom'], '--img_size', str(IMG),
+                                  '--coco_api', *data], work)
+        for name in ('bbox_detections.json', 'mask_detections.json'):
+            with open(os.path.join(work, 'results', name)) as f:
+                n = len(json.load(f))
+            _check(n > 0, f'--coco_api wrote an empty {name}')
+            print(f'eval CLI --coco_api: results/{name} holds {n} detections')
+        stats = re.findall(r' (bbox|segm) +(\w+): (-?[\d.]+)', out)
+        _check(len(stats) == 24 and all(math.isfinite(float(v)) for _, _, v in stats),
+               f'--coco_api printed {len(stats)} of 24 COCO stats:\n{out[-2000:]}')
+        print(f'eval CLI --coco_api in {seconds:.2f} s: ' +
+              ', '.join(f'{k} {n} {v}' for k, n, v in stats if n in ('AP', 'AP50', 'AR100')))
+
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = get_config('res50_custom', mode='val', img_size=IMG)
+        ds = COCODetection(cfg, mode='val')
+        det = load_detector(ckpts['res50_custom'], cfg, device=dev)
+        counters = _counters('res50_custom')
+        planes, kernel = [], nms.suppression_iou_max
+
+        def recording(*args):
+            out = kernel(*args)
+            planes.append(([a.clone() for a in args], out.clone()))
+            return out
+        nms.suppression_iou_max = recording
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            evaluate(det, cfg)
+        finally:
+            nms.suppression_iou_max = kernel
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        batches = -(-len(ds) // EVAL_BS)
+        print(f'res50_custom/eval in this process: {len(ds)} images in {seconds:.2f} s, '
+              f'launches {launches} ({batches} batches)')
+        _check(launches['suppression_iou_max'] == batches and launches['mask_finalize'] == 0,
+               f'the eval path launched {launches}, expected suppression once a batch')
+        _check(len(planes) == batches, f'recorded {len(planes)} of {batches} kernel 1 calls')
+        held = [_hold_suppression(f'(c) eval path, batch {b}', *p, timed=b == 0)
+                for b, p in enumerate(planes)]
+        c = dict(held[0], batches=len(held), max_abs_err=max(h['max_abs_err'] for h in held),
+                 timed='batch 0')
+        kernel1['inputs']['c_eval_path'] = c
+        kernel1['max_abs_err'] = max(kernel1['max_abs_err'], c['max_abs_err'])
+        kernel1['agreement'] = ('exact, NaN positions equal, on inputs (a), (b) and (c) the '
+                                'planes of every res50_custom/eval batch')
+        t_t, t_fetch, t_after, t_metric = timer.get_times(['batch', 'fetch', 'after_nms',
+                                                             'metric'])
+        print(_rate_line(f'  res50_custom evaluate() at {IMG}', EVAL_BS / t_t, t_t, t_fetch,
+                         t_after, t_metric, smi))
+        x = torch.from_numpy(np.stack([ds.get_val(i)['image'] for i in range(EVAL_BS)])).to(dev)
+        card_ms = _time_ms(lambda: det(x), warmup=2, iters=10)
+        print(f'  the card\'s part, Detector.__call__ on one batch of {EVAL_BS} (forward, decode, '
+              f'NMS, masks at proto size): {card_ms:.3f} ms (CUDA events, median of 10), '
+              f'{card_ms / (t_t * 1e3):.3f} of the eval batch: the card idles the rest')
+
+        cfg = get_config('res50_custom', mode='val', img_size=IMG, val_num=EVAL_CPU_IMAGES)
+        cpu = load_detector(ckpts['res50_custom'], cfg, device='cpu')
+        logs = ([], [])
+        for d, log in zip((det, cpu), logs):
+            post = d.postprocess_host
+
+            def record(dets, masks_proto, h, w, visual_thre=None, post=post, log=log):
+                out = post(dets, masks_proto, h, w, visual_thre)
+                log.append((dets, out))
+                return out
+            d.postprocess_host = record
+        t0 = time.perf_counter()
+        on_card = evaluate(det, cfg, max_images=EVAL_CPU_IMAGES)
+        on_cpu = evaluate(cpu, cfg, max_images=EVAL_CPU_IMAGES)
+        print(f'eval card vs CPU, float32, TF32 off, first {EVAL_CPU_IMAGES} images '
+              f'({time.perf_counter() - t0:.2f} s): card box {on_card[1]}, mask {on_card[2]}; '
+              f'cpu box {on_cpu[1]}, mask {on_cpu[2]}')
+        _check(on_card[1:] == on_cpu[1:], 'the card\'s eval table differs from the CPU\'s')
+        score_err, mismatch, exempt = _hold_slates(*logs)
+        print(f'  slates card vs CPU: {exempt} slots exempt as near-ties, max |score card - '
+              f'cpu| {score_err:.3g} (limit {POST_ATOL}), largest mask mismatch '
+              f'{mismatch:.3g} (limit {MASK_MISMATCH})')
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del det, cpu
+    torch.cuda.empty_cache()
+    print(f'eval phase: {time.perf_counter() - t_phase:.2f} s')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1216,13 +1495,14 @@ def main():
         return 2
     import yolact_minimal_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device('cuda', 0)
-    phase_env()
+    smi = phase_env()
     phase_build()
     kernels = [check_suppression(dev), check_mask_finalize(dev),
                check_window_attention(dev), check_swin_mlp(dev)]
     kernels += [check_attn_block(dev, kernels[2]), check_swin_block(dev, *kernels[2:])]
     torch.cuda.empty_cache()
-    by_path = {'res50_coco/cli': phase_cli(dev)}
+    by_path = {'res50_coco/cli': phase_cli(dev),
+               'res50_custom/eval': phase_eval(dev, smi, kernels[0])}
     for name, forms in (('res50_coco', ('composed',)), ('swin_tiny_coco', tuple(SWIN_PATHS))):
         det = images = composed_out = None
         for form in forms:

@@ -484,3 +484,42 @@ def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected):
     torch.cuda.synchronize()
     assert [f.launches - n for f, n in zip(counters, before)] == expected
     assert masks.shape == (2, 100, 128, 128) and bool(dets.valid.all())
+
+
+@pytest.mark.parametrize('name', ['res50_custom', 'res101_custom'])
+def test_evaluate_on_the_card_equals_the_cpu(card, tmp_path, name):
+    # float32, TF32 off (the card fixture): the eval tables of the card and
+    # the CPU on one seeded .ckpt and the first 4 images of custom_dataset/,
+    # and the slates behind them (ids and valid flags equal, scores and boxes
+    # within 1e-6, masks parting in under 1e-4 of their pixels)
+    from pathlib import Path
+
+    from yolact_minimal_torch.eval import evaluate
+    from yolact_minimal_torch.pipeline import Detector, load_detector
+    from yolact_minimal_torch.utils.checkpoint import save_checkpoint
+    from yolact_minimal_torch.utils.weights import to_jax_variables
+    data = Path(__file__).resolve().parents[1] / 'custom_dataset'
+    cfg = get_config(name, mode='val', img_size=256, val_num=4,
+                     val_imgs=str(data / 'images'), val_ann=str(data / 'annotations.json'))
+    path = str(tmp_path / f'seeded_{name}_0.ckpt')
+    save_checkpoint(path, to_jax_variables(Detector(cfg, device='cpu', seed=0).model.state_dict()))
+    gpu, cpu = load_detector(path, cfg, device=card), load_detector(path, cfg, device='cpu')
+    logs = ([], [])
+    for det, log in zip((gpu, cpu), logs):
+        def record(dets, masks_proto, h, w, visual_thre=None, post=det.postprocess_host,
+                   log=log):
+            out = post(dets, masks_proto, h, w, visual_thre)
+            log.append((dets, out))
+            return out
+        det.postprocess_host = record
+    before = suppression_iou_max.launches
+    on_card = evaluate(gpu, cfg, max_images=4)
+    assert suppression_iou_max.launches == before + 1       # one batch of 8, 4 padded
+    assert on_card == evaluate(cpu, cfg, max_images=4)
+    assert len(logs[0]) == len(logs[1]) == 4
+    for i, ((d, out), (rd, rout)) in enumerate(zip(*logs)):
+        np.testing.assert_array_equal(d.valid.numpy(), rd.valid.numpy(), err_msg=f'image {i}')
+        np.testing.assert_array_equal(d.ids.numpy(), rd.ids.numpy(), err_msg=f'image {i}')
+        np.testing.assert_allclose(d.scores.numpy(), rd.scores.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(d.boxes.numpy(), rd.boxes.numpy(), rtol=0, atol=1e-6)
+        assert out[3].shape == rout[3].shape and (out[3] != rout[3]).mean() < 1e-4, i

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports no JAX, no flax, nothing of the JAX
-package and no cv2 at import time, and its entry points run on the card
+"""The port stands alone: it imports no JAX, no flax, no msgpack, nothing of
+the JAX package and no cv2 at import time, and its entry points run on the card
 unless the caller asks for the CPU."""
 import os
 import subprocess
@@ -21,13 +21,14 @@ PORT_MODULES = sorted(
 
 def test_port_imports_no_jax():
     for module in ('ops.mask_finalize', 'ops.window_attention', 'ops.swin_mlp',
-                   'ops.attn_block', 'ops.swin_block', 'models.swin'):
+                   'ops.attn_block', 'ops.swin_block', 'models.swin', 'eval',
+                   'utils.msgpack', 'utils.checkpoint', 'data.coco', 'utils.cocoeval'):
         assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'
         f'for m in {PORT_MODULES!r}: __import__(m)\n'
         'bad = sorted(k for k in sys.modules if k.split(".")[0] in '
-        '("jax", "jaxlib", "flax", "yolact_minimal_tpu", "cv2"))\n'
+        '("jax", "jaxlib", "flax", "msgpack", "yolact_minimal_tpu", "cv2"))\n'
         'print(len(sys.modules)); assert not bad, bad\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
@@ -37,7 +38,7 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / 'chip_smoke.py').read_text()
-    for name in ('jax', 'flax', 'yolact_minimal_tpu', 'cv2'):
+    for name in ('jax', 'flax', 'msgpack', 'yolact_minimal_tpu', 'cv2'):
         assert f'import {name}' not in src and f'from {name}' not in src
 
 

@@ -146,6 +146,14 @@ class Config:
     def num_classes(self) -> int:
         return len(self.class_names) + 1
 
+    def print_cfg(self):
+        print()
+        print('-' * 30 + self.name + '-' * 30)
+        for k, v in vars(self).items():
+            if k not in ('continuous_id', 'data_root'):
+                print(f'{k}: {v}')
+        print()
+
 
 def _pascal_overrides():
     return dict(

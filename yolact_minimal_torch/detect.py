@@ -3,8 +3,9 @@
     python -m yolact_minimal_torch.detect --weight weights/x_res50_coco.pth \
         --image DIR [--cfg res50_coco] [--device cuda|cpu]
 
-Writes the drawn images to results/images/. The weight is a reference-format
-`.pth` state_dict. Images are read and written with cv2 where it imports,
+Writes the drawn images to results/images/. The weight is a `.ckpt` the JAX
+package wrote or a reference-format `.pth` state_dict. The images come from
+`COCODetection(cfg, 'detect')`, read and written with cv2 where it imports,
 else PIL (utils/image_io.py); with neither the CLI stops before the detector
 is built. Video input, --traditional_nms and --save_lincomb are not ported
 yet.
@@ -12,24 +13,24 @@ yet.
 from __future__ import annotations
 
 import argparse
-import glob
 import os
 import os.path as osp
 import time
 
 from yolact_minimal_torch.config import cfg_name_from_weight, get_config
-from yolact_minimal_torch.data.augment import val_aug
+from yolact_minimal_torch.data.coco import COCODetection
 from yolact_minimal_torch.pipeline import load_detector
 from yolact_minimal_torch.utils import image_io
 from yolact_minimal_torch.utils.visualize import draw_img
 
 
-def detect_one(detector, cfg, img_origin, img_name=None):
-    """One BGR image -> the image with its detections drawn. With
+def detect_one(detector, cfg, img_normed, img_origin, img_name=None):
+    """One image, normalized by `val_aug` and as read (BGR) -> the image with
+    its detections drawn. With
     `cfg.cutout`, the cutouts are written as `<img_name>_total_obj.jpg` and
     `<img_name>_<i>.jpg` under results/images/."""
     h, w = img_origin.shape[:2]
-    dets, masks_proto, _ = detector(val_aug(img_origin, cfg.img_size)[None])
+    dets, masks_proto, _ = detector(img_normed[None])
     det0 = type(dets)(*(x[0] for x in dets))
     ids, scores, boxes, masks = detector.postprocess_host(
         det0, masks_proto[0], h, w, visual_thre=cfg.visual_thre)
@@ -55,32 +56,30 @@ def main(argv=None):
     name = args.cfg or cfg_name_from_weight(args.weight)
     cfg = get_config(name, mode='detect', **{
         k: v for k, v in vars(args).items() if k not in ('weight', 'cfg', 'device')})
-    paths = sorted(glob.glob(osp.join(cfg.image, '*.jpg')) +
-                   glob.glob(osp.join(cfg.image, '*.png')))
+    dataset = COCODetection(cfg, mode='detect')
     try:        # before the detector is built: fail at once without an image library
         library = image_io.backend()
     except ImportError as e:
         raise SystemExit(str(e)) from None
     detector = load_detector(args.weight, cfg, device=args.device)
 
-    if not paths:
+    if not len(dataset):
         raise SystemExit(f'No .jpg/.png images in {cfg.image}')
     print(f'image library: {library}')
     os.makedirs('results/images', exist_ok=True)
     t0 = None
-    for i, path in enumerate(paths):
+    for i in range(len(dataset)):
         if i == 1:
             t0 = time.perf_counter()     # the first image includes warm-up
         try:
-            img = image_io.imread(path)
+            item = dataset.get_detect(i)
         except (OSError, ValueError) as e:
-            raise SystemExit(f'Cannot read {path}: {e}') from None
-        name = osp.basename(path)
-        out = detect_one(detector, cfg, img, img_name=name)
-        image_io.imwrite(osp.join('results/images', name), out)
-        print(f'\rDetecting: {i + 1}/{len(paths)}', end='')
+            raise SystemExit(f'Cannot read {dataset.image_path[i]}: {e}') from None
+        out = detect_one(detector, cfg, item['image'], item['origin'], img_name=item['name'])
+        image_io.imwrite(osp.join('results/images', item['name']), out)
+        print(f'\rDetecting: {i + 1}/{len(dataset)}', end='')
     if t0 is not None:
-        print(f'\nfps: {(len(paths) - 1) / (time.perf_counter() - t0):.2f}', end='')
+        print(f'\nfps: {(len(dataset) - 1) / (time.perf_counter() - t0):.2f}', end='')
     print('\nFinished, saved in: results/images.')
 
 

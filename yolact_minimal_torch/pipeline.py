@@ -23,7 +23,7 @@ from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize
 from yolact_minimal_torch.ops.nms import (Detections, assemble_masks,
                                           detect_postprocess_batch)
-from yolact_minimal_torch.utils.weights import load_pth
+from yolact_minimal_torch.utils.checkpoint import load_weights_auto
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -116,9 +116,10 @@ class Detector:
 
 def load_detector(weight_path: str, cfg: Optional[Config] = None,
                   device: Union[str, torch.device] = 'cuda') -> Detector:
-    """A Detector from a reference-format `.pth` state_dict, recovering the
-    config from the filename when not given."""
+    """A Detector from a `.ckpt` of the JAX package or a reference-format
+    `.pth` state_dict, recovering the config from the filename when not
+    given."""
     if cfg is None:
         cfg = get_config(cfg_name_from_weight(weight_path), mode='detect')
     resolve_device(device)
-    return Detector(cfg, load_pth(weight_path), device=device)
+    return Detector(cfg, load_weights_auto(weight_path), device=device)

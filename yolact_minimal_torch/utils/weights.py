@@ -10,12 +10,15 @@ Dense kernels [in, out] -> Linear weights [out, in], LayerNorm scale ->
 weight, and the stage/block tree back to `layers.{s}.blocks.{b}`. It takes
 the variables as nested dicts of numpy arrays and imports nothing of JAX.
 
-Reading the JAX package's `.ckpt` files (flax msgpack) is not ported yet.
+`to_jax_variables` goes the other way, state_dict -> JAX variables: the
+port's own copy of the JAX package's `convert_state_dict` (resnet) and
+`_convert_swin_entry` (swin), which `utils/checkpoint.py` writes as a
+`.ckpt` the JAX package reads.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -144,14 +147,142 @@ def from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+# --- state_dict -> JAX variables ------------------------------------------------
+
+def _hwio(w) -> np.ndarray:
+    """OIHW -> HWIO."""
+    return np.ascontiguousarray(np.transpose(_np(w), (2, 3, 1, 0)))
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _set(tree: dict, path: Tuple[str, ...], value: np.ndarray):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+_BN_LEAVES = {'weight': (0, 'scale'), 'bias': (0, 'bias'),
+              'running_mean': (1, 'mean'), 'running_var': (1, 'var')}
+
+
+def _bn_entry(leaf: str, value, trees, path: Tuple[str, ...]):
+    """One BatchNorm tensor into params (scale, bias) or batch_stats (mean,
+    var); num_batches_tracked is dropped."""
+    if leaf in _BN_LEAVES:
+        which, name = _BN_LEAVES[leaf]
+        _set(trees[which], path + (name,), _np(value))
+
+
+def _resnet_entry(rest: str, value, trees, prefix: Tuple[str, ...]):
+    m = re.match(r'^layers\.(\d+)\.(\d+)\.(.+)$', rest)
+    if m:
+        stage, block, leaf = m.groups()
+        mod = prefix + (f'layer{stage}_{block}',)
+        if leaf.startswith('downsample.0.'):
+            _set(trees[0], mod + ('downsample_conv', 'kernel'), _hwio(value))
+        elif leaf.startswith('downsample.1.'):
+            _bn_entry(leaf.split('.')[-1], value, trees, mod + ('downsample_bn',))
+        elif leaf.startswith('conv'):
+            _set(trees[0], mod + (leaf.split('.')[0], 'kernel'), _hwio(value))
+        elif leaf.startswith('bn'):
+            _bn_entry(leaf.split('.')[-1], value, trees, mod + (leaf.split('.')[0],))
+    elif rest == 'conv1.weight':
+        _set(trees[0], prefix + ('conv1', 'kernel'), _hwio(value))
+    elif rest.startswith('bn1.'):
+        _bn_entry(rest.split('.')[-1], value, trees, prefix + ('bn1',))
+
+
+_SWIN_BLOCK_LEAVES = {
+    'norm1.weight': ('norm1', 'scale'), 'norm1.bias': ('norm1', 'bias'),
+    'norm2.weight': ('norm2', 'scale'), 'norm2.bias': ('norm2', 'bias'),
+    'attn.qkv.weight': ('attn', 'qkv', 'kernel'), 'attn.qkv.bias': ('attn', 'qkv', 'bias'),
+    'attn.proj.weight': ('attn', 'proj', 'kernel'), 'attn.proj.bias': ('attn', 'proj', 'bias'),
+    'attn.relative_position_bias_table': ('attn', 'rel_bias_table'),
+    'mlp.fc1.weight': ('mlp', 'fc1', 'kernel'), 'mlp.fc1.bias': ('mlp', 'fc1', 'bias'),
+    'mlp.fc2.weight': ('mlp', 'fc2', 'kernel'), 'mlp.fc2.bias': ('mlp', 'fc2', 'bias'),
+}
+
+
+def _swin_entry(rest: str, value, params: dict, prefix: Tuple[str, ...]):
+    """Linear weights [out, in] -> Dense kernels [in, out], LayerNorm
+    weight -> scale; derived buffers (relative_position_index, attn_mask)
+    are dropped."""
+    v = _np(value)
+    if rest.startswith('patch_embed.proj.'):
+        leaf = 'kernel' if rest.endswith('weight') else 'bias'
+        _set(params, prefix + ('patch_embed', leaf), _hwio(v) if leaf == 'kernel' else v)
+        return
+    if rest.startswith('patch_embed.norm.'):
+        _set(params, prefix + ('patch_norm', 'scale' if rest.endswith('weight') else 'bias'), v)
+        return
+    m = re.match(r'^layers\.(\d+)\.blocks\.(\d+)\.(.+)$', rest)
+    if m:
+        stage, block, leaf = m.groups()
+        if leaf in _SWIN_BLOCK_LEAVES:
+            path = _SWIN_BLOCK_LEAVES[leaf]
+            if path[-1] == 'kernel':
+                v = np.ascontiguousarray(v.T)
+            _set(params, prefix + (f'stage{stage}', f'block{block}') + path, v)
+        return
+    m = re.match(r'^layers\.(\d+)\.downsample\.(.+)$', rest)
+    if m:
+        mod = prefix + (f'stage{m.group(1)}', 'downsample')
+        leaf = m.group(2)
+        if leaf == 'reduction.weight':
+            _set(params, mod + ('reduction', 'kernel'), np.ascontiguousarray(v.T))
+        elif leaf in ('norm.weight', 'norm.bias'):
+            _set(params, mod + ('norm', 'scale' if leaf.endswith('weight') else 'bias'), v)
+        return
+    m = re.match(r'^norm(\d)\.(weight|bias)$', rest)
+    if m:
+        _set(params, prefix + (f'out_norm{m.group(1)}',
+                               'scale' if m.group(2) == 'weight' else 'bias'), v)
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """A reference-format state_dict -> {'params': ..., 'batch_stats': ...}
+    of the JAX Yolact as nested dicts of float32 numpy arrays: conv weights
+    OIHW -> HWIO, BatchNorm into scale/bias and mean/var, the Sequential
+    indices of FPN / proto / head to their named modules. swin has no
+    BatchNorm, so its result has no 'batch_stats'."""
+    params: dict = {}
+    stats: dict = {}
+    is_swin = any('.blocks.' in k for k in state_dict)
+    sections = {'fpn': {v: k for k, v in _FPN_MAP.items()},
+                'proto_net': {v: k for k, v in _PROTO_MAP.items()},
+                'prediction_layers': {v: k for k, v in _HEAD_MAP.items()}}
+    for key, value in state_dict.items():
+        section, _, rest = key.partition('.')
+        if section == 'backbone':
+            if is_swin:
+                _swin_entry(rest, value, params, ('backbone',))
+            else:
+                _resnet_entry(rest, value, (params, stats), ('backbone',))
+        elif section in sections:
+            mod, _, leaf = rest.rpartition('.')
+            if mod in sections[section] and leaf in ('weight', 'bias'):
+                _set(params, (section, sections[section][mod],
+                              'kernel' if leaf == 'weight' else 'bias'),
+                     _hwio(value) if leaf == 'weight' else _np(value))
+    out = {'params': params}
+    if stats:
+        out['batch_stats'] = stats
+    return out
+
+
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """A reference-format `.pth` state_dict (unwrapping a {'model': ...} or
     {'state_dict': ...} container), without the train-only semantic head and
     without the `relative_position_index` / `attn_mask` buffers that
-    published swin checkpoints carry (the port derives both)."""
+    published swin checkpoints carry (the port derives both). A `.ckpt` is
+    refused: `checkpoint.load_weights_auto` reads both formats."""
     if path.endswith('.ckpt'):
-        raise NotImplementedError('reading the JAX package\'s .ckpt files is not '
-                                  'ported yet; convert to a .pth state_dict')
+        raise ValueError(f'{path} is a .ckpt (flax msgpack): read it with '
+                         'yolact_minimal_torch.utils.checkpoint.load_weights_auto')
     sd = torch.load(path, map_location='cpu', weights_only=True)
     for wrapper in ('model', 'state_dict'):
         if isinstance(sd.get(wrapper), dict):
