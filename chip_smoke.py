@@ -56,7 +56,19 @@ Phases, in order; any failure exits nonzero:
      its forms' kernels
      and no other swin kernel, and its float32 network outputs are
      also held to the composed form's on the card. Then each swin stage's
-     blocks alone in each form, timed with CUDA events.
+     blocks alone in each form, timed with CUDA events;
+  8. training: (a) kernels 3 and 4 under autograd at swin_tiny's training
+     shapes (544, train_bs 8, bf16): forward and gradients against the plain
+     version's autograd, forward and backward (the plain recompute) timed
+     with CUDA events and in device time; (b) res50_coco at 544, train_bs 8
+     on custom_dataset/ through the port's TrainLoader, float32 (TF32 off)
+     and bf16, and (c) swin_tiny_coco in bf16: train_step with the counters
+     set to 0 before and read after (swin: 12 launches of kernel 3 and 1 of
+     kernel 4 a step), finite losses, ms a step, img/s, peak memory and the
+     busy share of one profiled step; (d) `python -m
+     yolact_minimal_torch.train` on res50_custom at 256 for 220 steps with a
+     validation at step 200: the logged loss falls, both checkpoints are
+     written, the box and mask rows are printed.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
 
@@ -69,7 +81,11 @@ the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
 CLI's, res50_coco/cli, and the eval path's, res50_custom/eval, too).
-`bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
+Kernels 3 and 4 also carry `train` (their launches a
+training step and, per stage, forward and backward ms under autograd),
+`backward_ms` and `backward_device_ms` (stage 0); `launches_by_path` has the
+three training paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
+swin_tiny_coco/train_bfloat16). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
 around one call, the wrapper's host work included; the suppression,
 window-attention, mask and both block kernels also have `device_ms`, the
@@ -146,6 +162,19 @@ SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
 SWIN_PATHS = {'composed': ('composed',) * 4, 'attn_block': ('attn_block',) * 4,
               'whole': ('whole',) * 4,
               'mixed': ('whole', 'attn_block', 'composed', 'composed')}
+# The training phase: swin_tiny at 544, train_bs 8: (windows B*nW, windows
+# an image nW, C, heads, MLP rows B*h*w) of stages 0-3; the steps each
+# training path takes (2 of them warm-up); the loader's worker processes;
+# the train CLI's image size, steps and validation step. Kernel 3 runs in all
+# 12 blocks of a training step, kernel 4 only where stochastic depth is off
+# (block 0 of stage 0).
+TRAIN_BS = 8
+TRAIN_SWIN_STAGES = ((3200, 400, 96, 3, 147968), (800, 100, 192, 6, 36992),
+                     (200, 25, 384, 12, 9248), (72, 9, 768, 24, 2312))
+TRAIN_STEPS = 6
+TRAIN_WORKERS = 6
+TRAIN_CLI_IMG, TRAIN_CLI_STEPS, TRAIN_CLI_VAL = 256, 220, 200
+TRAIN_LAUNCHES_PER_STEP = {'window_attention': 12, 'swin_mlp': 1}
 # Float32 network outputs of two block forms on the card: the same function
 # up to summation order, each output within 1e-4 of its largest magnitude.
 FORM_REL_TOL = 1e-4
@@ -1487,6 +1516,256 @@ def phase_eval(dev, smi, kernel1):
     return launches
 
 
+# --- phase 8: training ----------------------------------------------------------
+
+def check_train_autograd(dev):
+    """Kernels 3 and 4 under autograd at swin_tiny's training shapes (544,
+    train_bs 8), bf16: the kernel forward and its backward (the plain
+    version recomputed under autograd) against the plain version's forward
+    and autograd on the same inputs and cotangent; forward and backward
+    timed with CUDA events and in device time. Returns {kernel: per-stage
+    list}."""
+    import torch
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
+    from yolact_minimal_torch.ops.window_attention import window_attention, window_attention_plain
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    out = {'window_attention': [], 'swin_mlp': []}
+
+    def held(name, stage, fn, plain, inputs, cot):
+        """Forward and gradients of fn against plain's; returns the worst
+        |kernel - plain| / max |plain| over the output and the gradients,
+        and fn's forward and backward times."""
+        def run(f):
+            leaves = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+            y = f(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            return [y.detach()] + list(torch.autograd.grad(y, wanted, cot))
+        worst = 0.0
+        for got, ref in zip(run(fn), run(plain)):
+            _check(got.dtype == ref.dtype, f'{name} stage {stage}: gradient types differ')
+            worst = max(worst, _rel_err(got, ref)[1])
+        _check(worst <= SWIN_BF16_REL_TOL, f'{name} stage {stage} under autograd: |kernel - '
+               f'plain| is {worst:.3g} of max |plain| (> {SWIN_BF16_REL_TOL:.3g})')
+        leaves = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+        wanted = [t for t in leaves if t.requires_grad]
+        fwd = lambda: fn(*leaves)
+        y = fwd()
+        bwd = lambda: torch.autograd.grad(y, wanted, cot, retain_graph=True)
+        times = dict(ms=_time_ms(fwd), device_ms=_device_ms(fwd), backward_ms=_time_ms(bwd),
+                     backward_device_ms=_device_ms(bwd), grad_rel_err=worst)
+        print(f'  {name} stage {stage} under autograd, bf16: forward {times["ms"]:.4f} ms (device '
+              f'{times["device_ms"]:.4f}), backward by plain recompute {times["backward_ms"]:.4f} '
+              f'ms (device {times["backward_device_ms"]:.4f}); output and gradients within '
+              f'{worst:.3g} of max |plain| (<= {SWIN_BF16_REL_TOL:.3g})')
+        return times
+
+    print('phase 8a: kernels 3 and 4 under autograd at the training shapes (544, train_bs 8)')
+    for stage, (bnw, nw, c, heads, rows) in enumerate(TRAIN_SWIN_STAGES):
+        side = int(round(nw ** 0.5)) * 7
+        region = torch.from_numpy(shifted_window_regions(side, side)).to(dev)
+        qkv = torch.randn(bnw, 49, 3 * c, device=dev, generator=g).to(bf16)
+        bias = (torch.randn(heads, 49, 49, device=dev, generator=g) * 0.1).to(bf16)
+        cot = torch.randn(bnw, 49, c, device=dev, generator=g).to(bf16)
+        t = held('window_attention', stage, lambda q, b: window_attention(q, b, region, heads),
+                 lambda q, b: window_attention_plain(q, b, region, heads), (qkv, bias), cot)
+        out['window_attention'].append(dict(shape=[bnw, 49, 3 * c], heads=heads, **t))
+        x = torch.randn(rows, c, device=dev, generator=g).to(bf16)
+        f32 = lambda *s, scale=0.05: torch.randn(*s, device=dev, generator=g) * scale
+        params = (f32(c, scale=0.1) + 1.0, f32(c, scale=0.1), f32(4 * c, c).to(bf16),
+                  f32(4 * c), f32(c, 4 * c).to(bf16), f32(c))
+        cot = torch.randn(rows, c, device=dev, generator=g).to(bf16)
+        t = held('swin_mlp', stage, mlp_block, mlp_block_plain, (x,) + params, cot)
+        out['swin_mlp'].append(dict(shape=[rows, c], **t))
+        del qkv, bias, x, params, cot
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_batches(n):
+    """n batches of custom_dataset/ at IMG, TRAIN_BS a batch, from the port's
+    TrainLoader (seed 0, worker processes); the loader is closed after."""
+    import os
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.data.coco import COCODetection, TrainLoader
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = get_config('res50_coco', mode='train', img_size=IMG, train_bs=TRAIN_BS,
+                     train_imgs=os.path.join(root, 'custom_dataset/images'),
+                     train_ann=os.path.join(root, 'custom_dataset/annotations.json'))
+    loader = TrainLoader(COCODetection(cfg, mode='train'), cfg, batch_size=TRAIN_BS,
+                         num_workers=TRAIN_WORKERS, seed=0)
+    batches, t0 = [], time.perf_counter()
+    try:
+        while len(batches) < n:
+            for batch in loader:
+                batches.append(batch)
+                if len(batches) == n:
+                    break
+    finally:
+        loader.close()
+    seconds = time.perf_counter() - t0
+    print(f'train batches: {n} of {TRAIN_BS} at {IMG} from custom_dataset/ through TrainLoader '
+          f'({TRAIN_WORKERS} worker processes) in {seconds:.2f} s, worker start-up included')
+    return batches
+
+
+def phase_train_path(dev, name, dtype, batches, smi):
+    """`name` at IMG, train_bs TRAIN_BS, compute dtype `dtype` (float32 with
+    TF32 off), seeded init: train_step over the batches (2 warm-up, then
+    timed on the host clock to a synchronize), the launch counters set to 0
+    before and read after, losses finite; peak device memory; then one step
+    under torch.profiler for the device's busy share. Returns (launches,
+    numbers)."""
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS, compute_dtype=dtype)
+    state = create_train_state(cfg, dev, seed=0)
+    counters = _counters(name)
+    for fn in counters.values():
+        fn.launches = 0
+    totals = []
+    for batch in batches[:2]:                                   # warm-up
+        totals.append(float(train_step(state, batch).total))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed = batches[2:]
+    t0 = time.perf_counter()
+    losses = [train_step(state, batch) for batch in timed]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / len(timed) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = len(batches)
+    totals += [float(l.total) for l in losses]
+    _check(all(math.isfinite(t) for t in totals), f'{name} {dtype}: non-finite loss {totals}')
+    if name.startswith('swin'):
+        # kernel 3 in all 12 blocks, kernel 4 where stochastic depth is off (block 0)
+        _check(launches['window_attention'] == 12 * steps and launches['swin_mlp'] == steps
+               and launches['attn_block'] == launches['swin_block'] == 0,
+               f'{name} train: expected 12 and 1 launches of kernels 3 and 4 a step over '
+               f'{steps} steps, got {launches}')
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        train_step(state, timed[0])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = device_ms / step_ms
+    groups = dict.fromkeys([g for g, _ in GROUPS] + ['other'], 0.0)
+    for e in kernels:
+        groups[next((g for g, pat in GROUPS if re.search(pat, e.key)), 'other')] += \
+            e.self_device_time_total / 1e3
+    host_ops = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:6]
+    numbers = dict(ms_per_step=step_ms, img_per_s=TRAIN_BS / step_ms * 1e3, peak_gb=peak_gb,
+                   device_ms_per_step=device_ms, busy_share=busy, traced_ms=traced_ms,
+                   first_loss=totals[0], last_loss=totals[-1])
+    print(f'{name} train {dtype} {IMG}/b{TRAIN_BS}: {step_ms:.3f} ms a step ({len(timed)} steps '
+          f'after 2 warm-up, host clock to a synchronize; batches on the host, copied in the '
+          f'step), {TRAIN_BS / step_ms * 1e3:.2f} img/s, peak device memory {peak_gb:.2f} GiB, '
+          f'one profiled step {device_ms:.3f} device ms ({traced_ms:.3f} ms traced): busy '
+          f'share {busy:.3f}; total loss {totals[0]:.3f} -> {totals[-1]:.3f}; launches '
+          f'{launches}; on {smi}')
+    print('  device ms by kernel group: ' + ', '.join(
+        f'{g} {ms:.3f}' for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]) if ms) +
+          f'; {sum(e.count for e in kernels)} kernel launches')
+    print('  host ms by operator (self CPU time, traced): ' + ', '.join(
+        f'{e.key} {e.self_cpu_time_total / 1e3:.3f} ({e.count})' for e in host_ops))
+    numbers.update(groups_ms=groups, kernel_launches=sum(e.count for e in kernels))
+    del state
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase_train_cli(smi):
+    """`python -m yolact_minimal_torch.train` as a user runs it: res50_custom
+    at TRAIN_CLI_IMG, train_bs 8, lr 2e-4, TRAIN_CLI_STEPS steps with one
+    validation at step TRAIN_CLI_VAL over custom_dataset/'s 48 images, from a
+    temporary working directory. The logged total loss must fall (mean of
+    the last 10 log lines below the first 10), the latest and best
+    checkpoints must be written. Prints the validation's box and mask
+    rows."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = [os.path.join(root, p) for p in ('custom_dataset/images',
+                                            'custom_dataset/annotations.json')]
+    args = ['--cfg', 'res50_custom', '--img_size', str(TRAIN_CLI_IMG), '--train_bs', '8',
+            '--lr', '2e-4', '--max_steps', str(TRAIN_CLI_STEPS), '--val_interval',
+            str(TRAIN_CLI_VAL), '--num_workers', str(TRAIN_WORKERS),
+            '--train_imgs', data[0], '--train_ann', data[1], '--val_imgs', data[0],
+            '--val_ann', data[1]]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get('PYTHONPATH')) if p))
+    with tempfile.TemporaryDirectory() as cwd:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-m', 'yolact_minimal_torch.train', *args],
+                              cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        _check(proc.returncode == 0, f'train CLI exited {proc.returncode}:\n'
+                                     f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+        weights = sorted(os.listdir(os.path.join(cwd, 'weights')))
+    out = proc.stdout
+    logged = [tuple(float(x) for x in m) for m in re.findall(
+        r'step: \d+ \| lr: \S+ \| l_class: (\S+) \| l_box: (\S+) \| l_mask: (\S+) \| '
+        r'l_semantic: (\S+) \| t_t: (\S+) \| t_d: (\S+) \| t_step: (\S+)', out)]
+    _check(len(logged) >= 20, f'the train CLI logged {len(logged)} steps:\n{out[-2000:]}')
+    totals = [sum(l[:4]) for l in logged]
+    first, last = statistics.mean(totals[:10]), statistics.mean(totals[-10:])
+    _check(all(math.isfinite(t) for t in totals) and last < first,
+           f'the train CLI loss did not fall: {totals}')
+    rows = _table_rows(out)
+    _check(f'latest_res50_custom_{TRAIN_CLI_STEPS}.ckpt' in weights and
+           any(w.startswith('best_') and w.endswith(f'_res50_custom_{TRAIN_CLI_VAL}.ckpt')
+               for w in weights), f'the train CLI wrote {weights}')
+    t_t, t_d, t_step = logged[-1][4:]
+    print(f'train CLI res50_custom {TRAIN_CLI_IMG}/b8 lr 2e-4, {TRAIN_CLI_STEPS} steps, '
+          f'{seconds:.2f} s: logged total loss (l_class + l_box + l_mask + l_semantic) mean of '
+          f'the first 10 log lines {first:.3f} -> last 10 {last:.3f}; last t_t {t_t:.3f} s, '
+          f't_d {t_d:.3f} s, t_step {t_step:.3f} s; wrote {weights}; on {smi}')
+    print(f'  validation at step {TRAIN_CLI_VAL} over custom_dataset/ (48 images), '
+          f'thresholds all, 50, 55, ..., 95:')
+    for k in ('box', 'mask'):
+        print(f'  {k:4s} ' + ' '.join(f'{v:6.2f}' for v in rows[k]))
+    return dict(seconds=seconds, first_loss=first, last_loss=last, rows=rows)
+
+
+def phase_train(dev, smi, kernels):
+    """Phase 8: kernels 3 and 4 under autograd (8a), res50_coco in float32
+    and bf16 and swin_tiny_coco in bf16 at 544, train_bs 8 on
+    custom_dataset/ (8b, 8c), the train CLI (8d). Adds each path's launch
+    counts to `kernels`' launches_by_path through the returned dict."""
+    import torch
+    t_phase = time.perf_counter()
+    auto = check_train_autograd(dev)
+    for k in kernels:
+        if k['name'] in auto:
+            k['train'] = dict(per_stage=auto[k['name']],
+                              launches_per_step=TRAIN_LAUNCHES_PER_STEP[k['name']])
+            k['backward_ms'] = auto[k['name']][0]['backward_ms']
+            k['backward_device_ms'] = auto[k['name']][0]['backward_device_ms']
+    batches = _train_batches(TRAIN_STEPS + 2)
+    by_path, numbers = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # float32 convolutions in float32
+    try:
+        for name, dtype in (('res50_coco', 'float32'), ('res50_coco', 'bfloat16'),
+                            ('swin_tiny_coco', 'bfloat16')):
+            path = f'{name}/train_{dtype}'
+            by_path[path], numbers[path] = phase_train_path(dev, name, dtype, batches, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del batches
+    numbers['cli'] = phase_train_cli(smi)
+    print(f'train phase: {time.perf_counter() - t_phase:.2f} s')
+    return by_path, numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1518,6 +1797,8 @@ def main():
             phase_stage_forms(det, dev)
         del det, images, composed_out
         torch.cuda.empty_cache()
+    train_paths, _ = phase_train(dev, smi, kernels)
+    by_path.update(train_paths)
     # `launches` is the count on the path that runs the kernel
     own_path = {'suppression_iou_max': 'res50_coco', 'mask_finalize': 'res50_coco',
                 'window_attention': 'swin_tiny_coco/composed', 'swin_mlp': 'swin_tiny_coco/composed',

@@ -108,6 +108,27 @@ def test_latest_payload_loads_through_load_weights_auto(jax_init, tmp_path, name
     Yolact(get_config(name, img_size=64)).load_state_dict(sd, strict=True)
 
 
+@pytest.mark.parametrize('name', ['res50_custom', 'swin_tiny_custom'])
+def test_semantic_head_is_kept_on_request(jax_init, tmp_path, name):
+    """A resumed training keeps the train-only semantic head: through a
+    .ckpt and a .pth with include_semantic, into a train-mode Yolact
+    strictly, and back into the JAX layout; inference drops it."""
+    variables = dict(jax_init(name))
+    head = {'kernel': np.random.RandomState(0).randn(1, 1, 256, 4).astype(np.float32),
+            'bias': np.arange(4, dtype=np.float32)}
+    variables['params'] = dict(variables['params'], semantic_seg_conv=head)
+    path = str(tmp_path / f'latest_{name}_5.ckpt')
+    jax_ckpt.save_checkpoint(path, variables)
+    sd = checkpoint.load_weights_auto(path, include_semantic=True)
+    assert 'semantic_seg_conv.weight' not in checkpoint.load_weights_auto(path)
+    Yolact(get_config(name, img_size=64), train_mode=True).load_state_dict(sd, strict=True)
+    _assert_trees_equal(to_jax_variables(sd)['params']['semantic_seg_conv'], head)
+    pth = str(tmp_path / f'latest_{name}_5.pth')
+    torch.save(sd, pth)
+    _assert_state_dicts_equal(load_pth(pth, include_semantic=True), sd)
+    assert not any(k.startswith('semantic_seg_conv.') for k in load_pth(pth))
+
+
 @pytest.mark.parametrize('name', CONFIGS)
 def test_port_checkpoint_is_what_flax_reads(jax_init, tmp_path, name):
     sd = from_jax_variables(jax_init(name))

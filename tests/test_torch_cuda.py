@@ -523,3 +523,176 @@ def test_evaluate_on_the_card_equals_the_cpu(card, tmp_path, name):
         np.testing.assert_allclose(d.scores.numpy(), rd.scores.numpy(), rtol=0, atol=1e-6)
         np.testing.assert_allclose(d.boxes.numpy(), rd.boxes.numpy(), rtol=0, atol=1e-6)
         assert out[3].shape == rout[3].shape and (out[3] != rout[3]).mean() < 1e-4, i
+
+
+# --- training: kernels 3 and 4 under autograd, and a train step ----------------
+
+# swin_tiny at 544, train_bs 8: (windows B*nW, windows an image nW, heads,
+# MLP rows B*h*w) of stages 0-3
+TRAIN_STAGES = [(3200, 400, 3, 147968), (800, 100, 6, 36992), (200, 25, 12, 9248),
+                (72, 9, 24, 2312)]
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('bnw,nw,heads,rows', TRAIN_STAGES)
+@pytest.mark.parametrize('masked', [False, True])
+def test_window_attention_autograd_equals_plain(card, dtype, tol, bnw, nw, heads, rows, masked):
+    """The kernel forward under autograd, and a backward that is the plain
+    version's autograd: gradients equal to plain autograd's up to the
+    forward tests' tolerance."""
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    rng = np.random.RandomState(2)
+    c, side = heads * 32, int(nw ** 0.5) * 7
+    qkv = torch.from_numpy(rng.randn(bnw, 49, 3 * c).astype(np.float32)).to(card, dtype)
+    bias = torch.from_numpy((rng.randn(heads, 49, 49) * 0.1).astype(np.float32)).to(card, dtype)
+    region = torch.from_numpy(shifted_window_regions(side, side)).to(card) if masked else None
+    cot = torch.from_numpy(rng.randn(bnw, 49, c).astype(np.float32)).to(card, dtype)
+    grads = []
+    for fn in (window_attention, window_attention_plain):
+        q, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        before = window_attention.launches
+        out = fn(q, b, region, heads)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert window_attention.launches == before + (fn is window_attention)
+        grads.append((out.detach(), q.grad, b.grad))
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype == dtype
+        _assert_close_rel(got, ref, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('bnw,nw,heads,rows', TRAIN_STAGES)
+def test_swin_mlp_autograd_equals_plain(card, dtype, tol, bnw, nw, heads, rows):
+    rng = np.random.RandomState(3)
+    c = heads * 32
+    x, params = _mlp_inputs(card, rng, rows, c, dtype)
+    params = list(params)
+    params[2], params[4] = params[2].to(dtype), params[4].to(dtype)   # weights as swin casts them
+    cot = torch.from_numpy(rng.randn(rows, c).astype(np.float32)).to(card, dtype)
+    results = []
+    for fn in (mlp_block, mlp_block_plain):
+        leaves = [t.clone().requires_grad_() for t in [x] + params]
+        before = mlp_block.launches
+        out = fn(*leaves)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert mlp_block.launches == before + (fn is mlp_block)
+        results.append([out.detach()] + [t.grad for t in leaves])
+    for got, ref in zip(*results):
+        assert got.dtype == ref.dtype
+        _assert_close_rel(got, ref, tol)
+
+
+def _res50_train_case():
+    """res50_custom at 128, train_bs 2, and one seeded batch of distinct
+    rows (tests/test_torch_train_step.py's)."""
+    cfg = get_config('res50_custom', mode='train', img_size=128, max_gt=4, train_bs=2,
+                     base_lr=0.1)
+    rng = np.random.RandomState(3)
+    xy1 = rng.uniform(0, 0.5, size=(2, 4, 2)).astype(np.float32)
+    wh = rng.uniform(0.2, 0.45, size=(2, 4, 2)).astype(np.float32)
+    batch = dict(image=rng.randn(2, 128, 128, 3).astype(np.float32),
+                 boxes=np.concatenate([xy1, xy1 + wh], 2),
+                 labels=rng.randint(0, 4, size=(2, 4)).astype(np.int32),
+                 valid=np.ones((2, 4), bool),
+                 masks_proto=(rng.rand(2, 4, 32, 32) > 0.5).astype(np.uint8),
+                 masks_seg=(rng.rand(2, 4, 16, 16) > 0.5).astype(np.uint8))
+    return cfg, batch
+
+
+def test_res50_train_step_on_the_card_equals_the_cpu(card):
+    """One res50_custom float32 step at 128, train_bs 2, from one seeded
+    init on the same batch, TF32 off: losses within 1e-4 relative; the
+    running statistics within 1e-3 of their largest magnitude; each
+    gradient and updated parameter (L2 norm) within twice the CPU float32
+    step's own error plus 1e-5 of its norm, that error being its distance
+    from the same step in float64. Training-mode BatchNorm at a random init
+    amplifies float32 rounding (tests/test_torch_train_step.py): the CPU's
+    float32 gradients lie 4e-4 (coefficient head) to 4.5e-2 (backbone
+    BatchNorm) from float64's (measured), and the card rounds at other
+    places, so card and CPU may each lie about that far from it."""
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    cfg, batch = _res50_train_case()
+    runs = {}
+    for where in ('cuda', 'cpu', 'cpu64'):
+        state = create_train_state(cfg, 'cuda' if where == 'cuda' else 'cpu', seed=0)
+        b = batch
+        if where == 'cpu64':
+            state.model.double()
+            b = dict(batch, image=batch['image'].astype(np.float64))
+        losses = train_step(state, b)
+        runs[where] = ([float(t) for t in losses],
+                       {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+                       {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+    np.testing.assert_allclose(runs['cuda'][0], runs['cpu'][0], rtol=1e-4)
+    over, worst = [], (0.0, '')
+    for i, what in ((1, 'gradient'), (2, 'updated')):
+        for k, ref in runs['cpu'][i].items():
+            got = runs['cuda'][i][k]
+            if k.endswith('num_batches_tracked'):
+                assert torch.equal(got, ref)
+            elif k.endswith(('running_mean', 'running_var')):
+                _assert_close_rel(got, ref, 1e-3)
+            else:
+                gap = (got - ref).norm().item()
+                floor = (runs['cpu64'][i][k].float() - ref).norm().item()
+                allowed = 2 * floor + 1e-5 * ref.norm().item()
+                worst = max(worst, (gap / allowed, f'{what} {k}'))
+                if gap > allowed:
+                    over.append(f'{what} {k}: {gap:.3g} > {allowed:.3g} (norm '
+                                f'{ref.norm().item():.3g})')
+    print(f'largest gap / allowed: {worst[0]:.3f} ({worst[1]})')
+    assert not over, '; '.join(over)
+
+
+def test_res50_near_identity_train_step_on_the_card_equals_the_cpu(card):
+    """The well-conditioned step of tests/test_torch_train_step.py (every
+    bottleneck's bn3 scale at 0.02 of the seeded init) in float32, TF32
+    off, on the card and on the CPU: losses within 1e-4 relative; the
+    running statistics within 1e-4 of their largest magnitude; the
+    gradients and the updates of each part of the network (backbone, fpn,
+    proto_net, prediction_layers, semantic_seg_conv) within 1e-4 of the
+    CPU's in L2 norm, each tensor within 1e-2 (a ReLU input that rounding
+    moves across 0 changes the layers below it), an update's allowance
+    plus the float32 spacing of its parameter. On the CPU this float32
+    step lies within 5e-6 of its float64 one a part and 9.4e-5 a tensor
+    (measured)."""
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    cfg, batch = _res50_train_case()
+    runs = {}
+    for where in ('cuda', 'cpu'):
+        state = create_train_state(cfg, where, seed=0)
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                if name.endswith('bn3.weight'):
+                    p.mul_(0.02)
+        before = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+        losses = train_step(state, batch)
+        runs[where] = ([float(t) for t in losses],
+                       {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+                       {k: p.detach().cpu() - before[k]
+                        for k, p in state.model.named_parameters()},
+                       {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+                        if k.endswith(('running_mean', 'running_var'))},
+                       {k: p.detach().cpu().numpy() for k, p in state.model.named_parameters()})
+    np.testing.assert_allclose(runs['cuda'][0], runs['cpu'][0], rtol=1e-4)
+    for k, ref in runs['cpu'][3].items():
+        _assert_close_rel(runs['cuda'][3][k], ref, 1e-4)
+    for i, what in ((1, 'gradient'), (2, 'update')):
+        parts, worst = {}, (0.0, '')
+        for k, ref in runs['cpu'][i].items():
+            gap, norm = (runs['cuda'][i][k] - ref).norm().item(), ref.norm().item()
+            # an update is resolved no finer than the float32 spacing of the
+            # parameter that stores it
+            slack = 0.0 if i == 1 else float(np.linalg.norm(np.spacing(runs['cpu'][4][k])))
+            worst = max(worst, (gap / max(norm, 1e-30), k))
+            assert gap <= 1e-2 * norm + slack, f'{what} {k}: {gap:.3g} of {norm:.3g}'
+            sums = parts.setdefault(k.split('.')[0], np.zeros(3))
+            sums += (gap * gap, norm * norm, slack * slack)
+        print(f'{what}: parts', {part: f'{np.sqrt(d2 / n2):.3g}'
+                                 for part, (d2, n2, _) in parts.items()},
+              f'largest tensor {worst[0]:.3g} ({worst[1]})')
+        over = {part: np.sqrt(d2 / n2) for part, (d2, n2, e2) in parts.items()
+                if np.sqrt(d2) > 1e-4 * np.sqrt(n2) + np.sqrt(e2)}
+        assert not over, f'{what}: {over}'

@@ -99,8 +99,8 @@ def test_val_and_detect_items_match_jax():
         a, b = ours.get_detect(i), ref.get_detect(i)
         for k in b:
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(ValueError, match='val and detect'):
-        COCODetection(cfg, mode='train')
+    with pytest.raises(ValueError, match='train, val or detect'):
+        COCODetection(cfg, mode='test')
 
 
 def _perturbed_detections(item, rng):

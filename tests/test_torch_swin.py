@@ -168,17 +168,25 @@ def test_derived_tensors_follow_their_parameters(small_swin):
     _, v = small_swin
     model = swin.SwinTiny(**SMALL, dtype=torch.bfloat16)
     block = model.layers[0].blocks[1]
-    k1, bias = block.mlp.fc1.cast()[0], block.attn.bias()
-    assert k1.dtype == bias.dtype == torch.bfloat16 and bias.shape == (1, 49, 49)
-    assert block.mlp.fc1.cast()[0] is k1 and block.attn.bias() is bias    # cached
-    assert len(block.attn.qkv.cast()) == 2 and len(model.layers[0].downsample.reduction.cast()) == 1
+    # calls that need no gradient (the eval path) share one cast per parameter
+    # version; calls that do cast afresh, so the gradient reaches the parameters
+    with torch.no_grad():
+        k1, bias = block.mlp.fc1.cast()[0], block.attn.bias()
+        assert k1.dtype == bias.dtype == torch.bfloat16 and bias.shape == (1, 49, 49)
+        assert block.mlp.fc1.cast()[0] is k1 and block.attn.bias() is bias    # cached
+        assert len(block.attn.qkv.cast()) == 2
+        assert len(model.layers[0].downsample.reduction.cast()) == 1
+    assert block.mlp.fc1.cast()[0].requires_grad and block.attn.bias().requires_grad
+    assert block.mlp.fc1.cast()[0] is not block.mlp.fc1.cast()[0]
     model.load_state_dict(swin_from_jax_params(v['params'], prefix=''), strict=True)
-    assert torch.equal(block.mlp.fc1.cast()[0], block.mlp.fc1.weight.detach().bfloat16())
-    assert not torch.equal(block.mlp.fc1.cast()[0], k1)
-    assert torch.equal(block.attn.qkv.cast()[1], block.attn.qkv.bias.detach().bfloat16())
-    table = block.attn.relative_position_bias_table.detach()
-    idx = torch.from_numpy(swin.relative_position_index().astype(np.int64))
-    assert torch.equal(block.attn.bias()[0], table[idx.reshape(-1), 0].reshape(49, 49).bfloat16())
+    with torch.no_grad():
+        assert torch.equal(block.mlp.fc1.cast()[0], block.mlp.fc1.weight.detach().bfloat16())
+        assert not torch.equal(block.mlp.fc1.cast()[0], k1)
+        assert torch.equal(block.attn.qkv.cast()[1], block.attn.qkv.bias.detach().bfloat16())
+        table = block.attn.relative_position_bias_table.detach()
+        idx = torch.from_numpy(swin.relative_position_index().astype(np.int64))
+        assert torch.equal(block.attn.bias()[0],
+                           table[idx.reshape(-1), 0].reshape(49, 49).bfloat16())
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         assert t.dtype in (torch.float32, torch.int64), name
 

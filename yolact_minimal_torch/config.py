@@ -7,6 +7,7 @@ are computed in __post_init__ as the reference config does.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
@@ -141,6 +142,9 @@ class Config:
                 'resnet101': 'weights/backbone_res101.pth',
                 'swin_tiny': 'weights/swin_tiny.pth',
             }.get(self.backbone)
+
+    def replace(self, **kw) -> 'Config':
+        return dataclasses.replace(self, **kw)
 
     @property
     def num_classes(self) -> int:

@@ -1,10 +1,13 @@
-"""ResNet-50/101 backbone (NCHW), eval-mode BatchNorm.
+"""ResNet-50/101 backbone (NCHW).
 
 Bottleneck residual stages (3, 4, 6, 3) / (3, 4, 23, 3) returning the
 C2..C5 pyramid. Convolutions use torch's symmetric padding, as the JAX
 package does explicitly, so one set of weights gives the same activations in
 both. Module names follow the reference state_dict
 (`layers.{stage}.{block}.conv1`, `downsample.0/1`).
+
+In training mode BatchNorm normalizes with the batch statistics and updates
+its running statistics by flax's rule (`BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -15,6 +18,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training-mode update of the running statistics
+    is flax's (momentum 0.9): running = 0.9 * running + 0.1 * batch, with the
+    BIASED batch variance, where nn.BatchNorm2d takes the unbiased one. The
+    output and the eval mode are nn.BatchNorm2d's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 (x4) with identity or projection shortcut."""
 
@@ -22,14 +42,14 @@ class Bottleneck(nn.Module):
                  projection: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
+        self.bn3 = BatchNorm2d(planes * 4, eps=1e-5)
         self.downsample = nn.Sequential(
             nn.Conv2d(in_planes, planes * 4, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes * 4, eps=1e-5)) if projection else None
+            BatchNorm2d(planes * 4, eps=1e-5)) if projection else None
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -46,7 +66,7 @@ class ResNet(nn.Module):
     def __init__(self, layers: Sequence[int]):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.layers = nn.ModuleList()
         in_planes = 64
         for stage, blocks in enumerate(layers):

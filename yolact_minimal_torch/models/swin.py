@@ -25,9 +25,16 @@ region ids, the padding rowmask and the relative-position index are
 data-independent numpy tables.
 
 `dtype` is the compute dtype: parameters stay float32, and each Linear keeps
-a copy cast once; LayerNorm runs in float32 and rounds its result, as flax's
-`LayerNorm(dtype=...)` does. Stochastic depth is inactive in eval and not
-ported yet.
+a copy cast once for calls that need no gradient; LayerNorm runs in float32
+and rounds its result, as flax's `LayerNorm(dtype=...)` does.
+
+Training (the module in train mode) runs the 'composed' form only, as the
+JAX package does: kernel 3 and, in blocks without stochastic depth, kernel
+4, each under autograd (their backward recomputes the plain version).
+Stochastic depth (`drop_path`, rates by linspace to `drop_path_rate` over the
+12 blocks) draws one keep bit a sample from the generator the forward is
+given; a block with a nonzero rate runs its MLP half in plain ops, as the
+JAX block does.
 """
 from __future__ import annotations
 
@@ -140,10 +147,27 @@ class _Derived:
         return self._value
 
 
+def _needs_grad(params: Sequence[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth: each sample's x kept with probability
+    1 - rate and then scaled by 1 / (1 - rate); the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                   device=x.device)
+    return x / keep * torch.floor(keep + u).to(x.dtype)
+
+
 class Linear(nn.Linear):
-    """nn.Linear that runs in `compute_dtype` on copies of its float32
-    parameters, cast once rather than on every call (eval only: the copies
-    carry no gradient)."""
+    """nn.Linear that runs in `compute_dtype`. A call that needs no gradient
+    uses copies of the float32 parameters cast once, rather than on every
+    call; a call that does casts them afresh, so the gradient reaches the
+    parameters."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
@@ -154,6 +178,8 @@ class Linear(nn.Linear):
     def cast(self) -> Tuple[torch.Tensor, ...]:
         """(weight,) or (weight, bias) in the compute dtype."""
         params = (self.weight,) if self.bias is None else (self.weight, self.bias)
+        if _needs_grad(params):
+            return tuple(p.to(self.compute_dtype) for p in params)
         return self._cast.get(
             params, lambda: tuple(p.detach().to(self.compute_dtype) for p in params))
 
@@ -181,14 +207,17 @@ class WindowAttention(nn.Module):
         self._bias = _Derived()
 
     def bias(self) -> torch.Tensor:
-        """[heads, N, N] in the compute dtype, gathered once per table."""
+        """[heads, N, N] in the compute dtype: gathered once per table for
+        calls that need no gradient, afresh for calls that do."""
         table = self.relative_position_bias_table
         n = WINDOW * WINDOW
 
-        def make():
-            b = table.detach()[self.relative_position_index.reshape(-1)]
+        def make(t):
+            b = t[self.relative_position_index.reshape(-1)]
             return b.reshape(n, n, -1).permute(2, 0, 1).to(self.dtype).contiguous()
-        return self._bias.get((table,), make)
+        if _needs_grad((table,)):
+            return make(table)
+        return self._bias.get((table,), lambda: make(table.detach()))
 
     def forward(self, x, region, fused_block: bool = False):
         """`fused_block`: qkv, attention and proj as one kernel."""
@@ -213,14 +242,16 @@ class SwinBlock(nn.Module):
     """W-MSA / SW-MSA block on [B, H, W, C]. The input is padded bottom/right
     to a multiple of the window with zeros AFTER norm1, and the regions are
     those of the padded size. `fused_attn_block` and `fused_whole` pick the
-    form (module docstring); the parameters are the same in all three."""
+    form (module docstring); the parameters are the same in all three.
+    `drop_path_rate` is the block's stochastic depth in training."""
 
     def __init__(self, dim: int, num_heads: int, shift: int,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
-                 fused_whole: bool = False):
+                 fused_whole: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         self.shift = shift
         self.dtype = dtype
+        self.drop_path_rate = drop_path_rate
         self.fused_attn_block = fused_attn_block
         self.fused_whole = fused_whole
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -249,19 +280,27 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
         return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
+        if self.training and (self.fused_whole or self.fused_attn_block):
+            raise NotImplementedError('swin trains in the composed form only: the '
+                                      "'attn_block' and 'whole' kernels have no backward")
         if self.fused_whole:
             return self._whole(x)
+        rate = self.drop_path_rate if self.training else 0.0
         shortcut = x
         x = _layer_norm(x, self.norm1, self.dtype)
         windows, hp, wp, region = self._to_windows(x)
         attended = self.attn(windows, region, fused_block=self.fused_attn_block)
         x = self._from_windows(attended, hp, wp, h, w)
-        x = (shortcut + x).reshape(-1, c)
+        x = shortcut + drop_path(x, rate, generator)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        y = mlp_block(x, self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
-                      fc2.cast()[0], fc2.bias)
+        if rate > 0.0:
+            # stochastic depth on the MLP branch: plain ops, as in the JAX block
+            y = fc2(F.gelu(fc1(_layer_norm(x, self.norm2, self.dtype)).float()).to(self.dtype))
+            return x + drop_path(y, rate, generator)
+        y = mlp_block(x.reshape(-1, c), self.norm2.weight, self.norm2.bias, fc1.cast()[0],
+                      fc1.bias, fc2.cast()[0], fc2.bias)
         return y.reshape(b, h, w, c)
 
     def _whole(self, x):
@@ -304,17 +343,19 @@ class SwinStage(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
-                 fused_whole: bool = False):
+                 fused_whole: bool = False, drop_path_rates: Sequence[float] = ()):
         super().__init__()
+        rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype,
-                      fused_attn_block=fused_attn_block, fused_whole=fused_whole)
+                      fused_attn_block=fused_attn_block, fused_whole=fused_whole,
+                      drop_path_rate=rates[i])
             for i in range(depth))
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         return x, (x if self.downsample is None else self.downsample(x))
 
 
@@ -329,18 +370,23 @@ class SwinTiny(nn.Module):
     """`forward(x [B, H, W, 3])` returns 4 [B, h, w, C] feature maps (96,
     192, 384, 768 channels at strides 4/8/16/32) in the compute dtype;
     outputs 1-3 are LayerNormed. `block_forms` is one of `FORMS` for every
-    stage, or one per stage."""
+    stage, or one per stage. `drop_path_rate` is the last block's stochastic
+    depth in training; block i of all 12 gets linspace(0, rate, 12)[i]."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  dtype: torch.dtype = torch.float32,
-                 block_forms: Union[str, Sequence[str]] = 'composed'):
+                 block_forms: Union[str, Sequence[str]] = 'composed',
+                 drop_path_rate: float = 0.2):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(embed_dim)
+        rates = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum((0,) + tuple(depths)).tolist()
         self.layers = nn.ModuleList(
             SwinStage(embed_dim * 2 ** i, depth, num_heads[i],
-                      downsample=i < len(depths) - 1, dtype=dtype)
+                      downsample=i < len(depths) - 1, dtype=dtype,
+                      drop_path_rates=rates[starts[i]:starts[i] + depth])
             for i, depth in enumerate(depths))
         for i in (1, 2, 3):
             setattr(self, f'norm{i}', nn.LayerNorm(embed_dim * 2 ** i, eps=LN_EPS))
@@ -358,7 +404,9 @@ class SwinTiny(nn.Module):
                 block.fused_attn_block = form == 'attn_block'
                 block.fused_whole = form == 'whole'
 
-    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """`generator` draws the stochastic depth in training."""
         h, w = x.shape[1:3]
         x = x.permute(0, 3, 1, 2)
         if h % 4 or w % 4:
@@ -369,7 +417,7 @@ class SwinTiny(nn.Module):
         x = _layer_norm(x, self.patch_embed.norm, self.dtype)
         outs = []
         for i, stage in enumerate(self.layers):
-            out, x = stage(x)
+            out, x = stage(x, generator)
             if i > 0:
                 out = _layer_norm(out, getattr(self, f'norm{i}'), self.dtype)
             outs.append(out)

@@ -96,13 +96,19 @@ class PredictionHead(nn.Module):
 
 
 class Yolact(nn.Module):
-    """Eval-mode YOLACT. `forward(img [B, S, S, 3])` returns (softmax class
-    scores [B, A, C], box offsets [B, A, 4], mask coefs [B, A, 32], proto
-    [B, S/4, S/4, 32]), all float32 whatever cfg.compute_dtype."""
+    """YOLACT. `forward(img [B, S, S, 3])` returns (softmax class scores
+    [B, A, C], box offsets [B, A, 4], mask coefs [B, A, 32], proto
+    [B, S/4, S/4, 32]), all float32 whatever cfg.compute_dtype.
 
-    def __init__(self, cfg: Config):
+    With `train_mode` the model also holds the train-only semantic head
+    (`semantic_seg_conv`, 1x1 on P3 to C-1 classes) and returns (raw class
+    logits, box, coef, proto, seg logits [B, S/8, S/8, C-1]), all float32.
+    BatchNorm follows the module's train()/eval() mode."""
+
+    def __init__(self, cfg: Config, train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.train_mode = train_mode
         if cfg.backbone in BACKBONE_LAYERS:
             self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone])
             self.fpn = FPN((512, 1024, 2048))
@@ -114,6 +120,8 @@ class Yolact(nn.Module):
             raise ValueError(f'Unknown backbone {cfg.backbone!r}')
         self.proto_net = ProtoNet()
         self.prediction_layers = PredictionHead(cfg.num_classes, len(cfg.aspect_ratios))
+        if train_mode:
+            self.semantic_seg_conv = nn.Conv2d(256, cfg.num_classes - 1, 1)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Xavier-uniform conv weights and zero biases (the reference init),
@@ -136,21 +144,26 @@ class Yolact(nn.Module):
             if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
                 nn.init.zeros_(m.bias)
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """`generator` draws swin's stochastic depth in training."""
         # cfg.compute_dtype 'bfloat16' runs the convolutions in bf16 under
         # autocast while parameters and BatchNorm statistics stay float32,
         # as flax's Conv/BatchNorm(dtype=bf16) do in the JAX package.
         bf16 = self.cfg.compute_dtype == 'bfloat16'
         with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=bf16):
             if isinstance(self.backbone, SwinTiny):
-                c3, c4, c5 = (t.permute(0, 3, 1, 2) for t in self.backbone(img)[1:])
+                c3, c4, c5 = (t.permute(0, 3, 1, 2)
+                              for t in self.backbone(img, generator)[1:])
             else:
                 _, c3, c4, c5 = self.backbone(img.permute(0, 3, 1, 2))
             p3, p4, p5, p6, p7 = self.fpn(c3, c4, c5)
             proto = self.proto_net(p3)
             outs = [self.prediction_layers(p) for p in (p3, p4, p5, p6, p7)]
+            seg = self.semantic_seg_conv(p3) if self.train_mode else None
         class_pred, box_pred, coef_pred = (
             torch.cat([o[i] for o in outs], dim=1).float() for i in range(3))
         proto = proto.permute(0, 2, 3, 1).float().contiguous()
+        if self.train_mode:
+            return class_pred, box_pred, coef_pred, proto, seg.permute(0, 2, 3, 1).float()
         return torch.softmax(class_pred, dim=-1), box_pred, coef_pred, proto
 

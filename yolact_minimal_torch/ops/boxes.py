@@ -45,6 +45,16 @@ def make_anchors(img_size: int, aspect_ratios, scales) -> np.ndarray:
     return np.array(out, dtype=np.float32)
 
 
+def encode(matched: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Matched gt boxes (normalized xyxy) against cxcywh anchors -> SSD
+    offsets [..., 4]; widths and heights clamped at 1e-12 before the log."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - anchors[..., :2]
+    g_cxcy = g_cxcy / (VARIANCES[0] * anchors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / anchors[..., 2:]
+    g_wh = torch.log(g_wh.clamp(min=1e-12)) / VARIANCES[1]
+    return torch.cat([g_cxcy, g_wh], dim=-1)
+
+
 def decode(offsets: torch.Tensor, anchors: torch.Tensor, clip: bool = True) -> torch.Tensor:
     """SSD offsets [..., 4] against cxcywh anchors -> normalized xyxy boxes,
     clipped to [0, 1] when `clip`."""

@@ -3,7 +3,11 @@
 `mlp_block` launches the hand-written CUDA kernel (`csrc/swin_mlp.cu`) for
 tensors on the card and runs the plain PyTorch version, `mlp_block_plain`,
 for tensors on the CPU. It counts its kernel launches in
-`mlp_block.launches`.
+`mlp_block.launches`. Where an input needs a gradient it runs under autograd
+(`_MlpBlockFn`): the same forward, and a backward that recomputes the plain
+version from the saved inputs, as the JAX package's custom_vjp does through
+its XLA form; gradients go to x, the LayerNorm scale and bias, k1, b1, k2
+and b2.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm in float32 (eps 1e-5), rounded to the compute
@@ -61,12 +65,36 @@ def _check(x, ln_scale, ln_bias, k1, b1, k2, b2):
         raise ValueError('mlp_block: inputs lie on different devices')
 
 
+class _MlpBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return _forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(inputs, ctx.needs_input_grad)]
+            out = mlp_block_plain(*inputs)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 def mlp_block(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU. A caller that runs in bfloat16 passes k1 and k2
-    already in bfloat16 (models/swin.py keeps such copies per block);
-    float32 weights are rounded here, on every call."""
+    for tensors on the CPU, through an autograd Function (its backward
+    recomputes the plain version).
+    A caller that runs in bfloat16 passes k1 and k2 already in bfloat16
+    (models/swin.py keeps such copies per block); float32 weights are
+    rounded here, on every call."""
     _check(x, ln_scale, ln_bias, k1, b1, k2, b2)
+    return _MlpBlockFn.apply(x, ln_scale, ln_bias, k1, b1, k2, b2)
+
+
+def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
     if x.device.type == 'cpu':
         return mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2)
     if x.device.type != 'cuda':

@@ -4,7 +4,11 @@ softmax(q k^T * hd^-0.5 + rel_bias[h] + (-100 where region ids differ)) v.
 `window_attention` launches the hand-written CUDA kernel
 (`csrc/window_attention.cu`) for tensors on the card and runs the plain
 PyTorch version, `window_attention_plain`, for tensors on the CPU. It counts
-its kernel launches in `window_attention.launches`.
+its kernel launches in `window_attention.launches`. Where qkv or bias needs
+a gradient it runs under autograd (`_WindowAttentionFn`): the same forward,
+and a backward that recomputes the plain version from the saved qkv and
+bias, as the JAX package's custom_vjp does through its XLA form, so no
+[*, N, N] residual is kept. The region ids get no gradient.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: `q * scale` is rounded to the compute dtype (the scale
@@ -121,12 +125,34 @@ def _check(qkv, bias, region, heads):
                              f'number of images of {region.shape[0]} windows')
 
 
+class _WindowAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bias, region, heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.region, ctx.heads = region, heads
+        return _forward(qkv, bias, region, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, bias = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast(qkv.device.type, enabled=False):
+            qkv, bias = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+            out = window_attention_plain(qkv, bias, ctx.region, ctx.heads)
+            d_qkv, d_bias = torch.autograd.grad(out, (qkv, bias), grad)
+        return d_qkv, d_bias, None, None
+
+
 def window_attention(qkv, bias, region: Optional[torch.Tensor],
                      heads: int) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU. Window w of the batch-major leading axis uses
-    region row w % nW. Returns [B*nW, N, C] in qkv's dtype."""
+    for tensors on the CPU, through an autograd Function (its backward
+    recomputes the plain version). Window w of the batch-major leading
+    axis uses region row w % nW. Returns [B*nW, N, C] in qkv's dtype."""
     _check(qkv, bias, region, heads)
+    return _WindowAttentionFn.apply(qkv, bias, region, heads)
+
+
+def _forward(qkv, bias, region, heads):
     if qkv.device.type == 'cpu':
         return window_attention_plain(qkv, bias, region, heads)
     if qkv.device.type != 'cuda':

@@ -87,15 +87,17 @@ def step_from_name(path: str) -> int:
     return int(m.group(1))
 
 
-def load_weights_auto(path: str) -> Dict[str, torch.Tensor]:
+def load_weights_auto(path: str, include_semantic: bool = False) -> Dict[str, torch.Tensor]:
     """A `.ckpt` of the JAX package or a reference `.pth` -> the port's
-    state_dict for inference: the train-only semantic head, the optimizer
-    state, the step and collections stored as None (swin's batch_stats) are
-    dropped."""
+    state_dict: the optimizer state, the step and collections stored as
+    None (swin's batch_stats) are dropped, and so is the train-only
+    semantic head unless `include_semantic` (a resumed training keeps it;
+    the optimizer state is `load_checkpoint(path)['opt_state']`)."""
     if not path.endswith('.ckpt'):
-        return load_pth(path)
+        return load_pth(path, include_semantic=include_semantic)
     variables = load_checkpoint(path)
-    variables['params'].pop('semantic_seg_conv', None)
+    if not include_semantic:
+        variables['params'].pop('semantic_seg_conv', None)
     variables.pop('opt_state', None)
     variables.pop('step', None)
     for k in [k for k, v in variables.items() if v is None]:

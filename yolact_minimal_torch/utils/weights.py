@@ -103,16 +103,20 @@ def swin_from_jax_params(bb: dict, prefix: str = 'backbone.') -> Dict[str, torch
 
 def from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} of a Yolact (nested dicts of
-    numpy arrays) -> reference-format state_dict of float32 tensors."""
+    numpy arrays) -> reference-format state_dict of float32 tensors. The
+    train-only `semantic_seg_conv` comes along where the params hold it;
+    without 'batch_stats' (an optimizer's moments, laid out as the params)
+    no running statistics are written."""
     params = variables['params']
-    stats = variables.get('batch_stats', {})
+    stats = variables.get('batch_stats') or {}
     out: Dict[str, torch.Tensor] = {}
 
     def put_bn(prefix: str, p: dict, s: dict):
         out[f'{prefix}.weight'] = _tensor(p['scale'])
         out[f'{prefix}.bias'] = _tensor(p['bias'])
-        out[f'{prefix}.running_mean'] = _tensor(s['mean'])
-        out[f'{prefix}.running_var'] = _tensor(s['var'])
+        if s:
+            out[f'{prefix}.running_mean'] = _tensor(s['mean'])
+            out[f'{prefix}.running_var'] = _tensor(s['var'])
 
     bb_p, bb_s = params['backbone'], stats.get('backbone', {})
     if any(k.startswith('stage') for k in bb_p):
@@ -122,7 +126,7 @@ def from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
         if mod == 'conv1':
             out['backbone.conv1.weight'] = _conv(p['kernel'])
         elif mod == 'bn1':
-            put_bn('backbone.bn1', p, bb_s['bn1'])
+            put_bn('backbone.bn1', p, bb_s.get('bn1'))
         else:
             m = re.match(r'^layer(\d+)_(\d+)$', mod)
             if not m:
@@ -132,11 +136,11 @@ def from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
                 if leaf == 'downsample_conv':
                     out[f'{pre}.downsample.0.weight'] = _conv(v['kernel'])
                 elif leaf == 'downsample_bn':
-                    put_bn(f'{pre}.downsample.1', v, bb_s[mod][leaf])
+                    put_bn(f'{pre}.downsample.1', v, bb_s.get(mod, {}).get(leaf))
                 elif leaf.startswith('conv'):
                     out[f'{pre}.{leaf}.weight'] = _conv(v['kernel'])
                 elif leaf.startswith('bn'):
-                    put_bn(f'{pre}.{leaf}', v, bb_s[mod][leaf])
+                    put_bn(f'{pre}.{leaf}', v, bb_s.get(mod, {}).get(leaf))
 
     for section, name_map in (('fpn', _FPN_MAP), ('proto_net', _PROTO_MAP),
                               ('prediction_layers', _HEAD_MAP)):
@@ -144,6 +148,9 @@ def from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
             out[f'{section}.{name_map[mod]}.weight'] = _conv(p['kernel'])
             if 'bias' in p:
                 out[f'{section}.{name_map[mod]}.bias'] = _tensor(p['bias'])
+    if 'semantic_seg_conv' in params:
+        out['semantic_seg_conv.weight'] = _conv(params['semantic_seg_conv']['kernel'])
+        out['semantic_seg_conv.bias'] = _tensor(params['semantic_seg_conv']['bias'])
     return out
 
 
@@ -247,7 +254,8 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
     """A reference-format state_dict -> {'params': ..., 'batch_stats': ...}
     of the JAX Yolact as nested dicts of float32 numpy arrays: conv weights
     OIHW -> HWIO, BatchNorm into scale/bias and mean/var, the Sequential
-    indices of FPN / proto / head to their named modules. swin has no
+    indices of FPN / proto / head to their named modules, and the train-only
+    `semantic_seg_conv` where the state_dict holds it. swin has no
     BatchNorm, so its result has no 'batch_stats'."""
     params: dict = {}
     stats: dict = {}
@@ -268,18 +276,22 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
                 _set(params, (section, sections[section][mod],
                               'kernel' if leaf == 'weight' else 'bias'),
                      _hwio(value) if leaf == 'weight' else _np(value))
+        elif section == 'semantic_seg_conv':
+            _set(params, (section, 'kernel' if rest == 'weight' else 'bias'),
+                 _hwio(value) if rest == 'weight' else _np(value))
     out = {'params': params}
     if stats:
         out['batch_stats'] = stats
     return out
 
 
-def load_pth(path: str) -> Dict[str, torch.Tensor]:
+def load_pth(path: str, include_semantic: bool = False) -> Dict[str, torch.Tensor]:
     """A reference-format `.pth` state_dict (unwrapping a {'model': ...} or
-    {'state_dict': ...} container), without the train-only semantic head and
-    without the `relative_position_index` / `attn_mask` buffers that
-    published swin checkpoints carry (the port derives both). A `.ckpt` is
-    refused: `checkpoint.load_weights_auto` reads both formats."""
+    {'state_dict': ...} container), without the `relative_position_index` /
+    `attn_mask` buffers that published swin checkpoints carry (the port
+    derives both), and without the train-only semantic head unless
+    `include_semantic` (a resumed training keeps it). A `.ckpt` is refused:
+    `checkpoint.load_weights_auto` reads both formats."""
     if path.endswith('.ckpt'):
         raise ValueError(f'{path} is a .ckpt (flax msgpack): read it with '
                          'yolact_minimal_torch.utils.checkpoint.load_weights_auto')
@@ -289,5 +301,5 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
             sd = sd[wrapper]
             break
     return {k: v for k, v in sd.items()
-            if not k.startswith('semantic_seg_conv.')
+            if (include_semantic or not k.startswith('semantic_seg_conv.'))
             and not k.endswith(('.relative_position_index', '.attn_mask'))}
