@@ -13,7 +13,9 @@ Phases, in order; any failure exits nonzero:
      four swin kernels at each of the four stage shapes, in bf16 and float32,
      shifted and unshifted (the whole-block kernel with the padded map's
      rowmask and once without), the two block kernels beside the times of
-     what they replace, the MLP kernel beside a composition of PyTorch calls,
+     what they replace (the whole-block kernel also beside the block as
+     PyTorch's own calls, and at C = 768 each of its six launches' device
+     time), the MLP kernel beside a composition of PyTorch calls,
      the window-attention, MLP and both block kernels with their launch
      geometry and a check that two launches agree bit for bit; the
      suppression kernel with its launch geometry on input (a), a fixture with
@@ -851,15 +853,65 @@ def check_attn_block(dev, attention):
                 peak=BF16_PEAK, library_ms=None, per_stage=per_stage)
 
 
+def _library_block(p, heads):
+    """Kernel 6's yardstick: the block as PyTorch's own calls on the same
+    windowed bf16 rows, F.layer_norm -> F.linear -> SDPA (bias + the -100
+    region fill as attn_mask) -> F.linear -> add -> F.layer_norm -> F.linear
+    -> F.gelu -> F.linear -> add (no rowmask: the shifted block of an
+    unpadded map). Timed only; the port never calls it. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    x = p['x'].to(bf)
+    bnw, n, c = x.shape
+    nw = p['region'].shape[0]
+    differ = p['region'][:, :, None] != p['region'][:, None, :]
+    mask = (p['bias'].to(bf)[None] + torch.where(differ, -100.0, 0.0)[:, None].to(bf))
+    ln1, ln2 = [tuple(t.to(bf) for t in p[k]) for k in ('ln1', 'ln2')]
+    (wqkv, bqkv), (wproj, bproj), (w1, b1), (w2, b2) = [
+        tuple(t.to(bf) for t in p[k]) for k in ('qkv', 'proj', 'fc1', 'fc2')]
+
+    def block():
+        xn = F.layer_norm(x, (c,), *ln1)
+        q, k, v = F.linear(xn, wqkv, bqkv).reshape(bnw // nw, nw, n, 3, heads, c // heads) \
+            .permute(3, 0, 1, 4, 2, 5).unbind(0)
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        h = x + F.linear(a.permute(0, 1, 3, 2, 4).reshape(bnw, n, c), wproj, bproj)
+        return h + F.linear(F.gelu(F.linear(F.layer_norm(h, (c,), *ln2), w1, b1)), w2, b2)
+    return block
+
+
+def _flat_launch_device_ms(fn, iters=20):
+    """Device ms of each of the flat form's launches (csrc/swin_block.cu at
+    C = 768) in one call of fn, under torch.profiler over `iters` calls."""
+    import torch
+    from yolact_minimal_torch.ops.swin_block import FLAT_LAUNCHES
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(FLAT_LAUNCHES, 0.0)
+    for e in prof.key_averages():
+        m = re.search(r'swin_block_(\w+?)_kernel', e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m and m.group(1) in ms:
+            ms[m.group(1)] += e.self_device_time_total / iters / 1e3
+    _check(all(v > 0 for v in ms.values()), f'the profile misses a launch of the flat form: {ms}')
+    return ms
+
+
 def check_swin_block(dev, attention, mlp):
     """Kernel 6 at the four stage shapes: bf16 and float32, unshifted and
     shifted with the padded map's rowmask, and once with rowmask=None, against
     the plain version; two bf16 launches must give the same bits. Timed in
     bf16 on the shifted form (events, and device time under torch.profiler),
-    beside kernel 3 + kernel 4 at the same stage from this run, with the
-    launch geometry."""
+    beside kernel 3 + kernel 4 at the same stage from this run and the block
+    as PyTorch's own calls (`library_ms`, events and device time), with the
+    launch geometry; at C = 768 each of the six launches' device time."""
     import torch
-    from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
+    from yolact_minimal_torch.ops.swin_block import (GEMM_LAUNCHES, GEMM_ROWS, GEMM_SHAPES,
+                                                     KERNEL_SHAPES, kernel_attributes,
                                                      kernel_geometry, swin_block,
                                                      swin_block_plain)
     g = torch.Generator(device=dev).manual_seed(6)
@@ -893,25 +945,35 @@ def check_swin_block(dev, attention, mlp):
         ms = _time_ms(lambda: swin_block(*args))
         device_ms = _device_ms(lambda: swin_block(*args))
         plain_ms = _time_ms(lambda: swin_block_plain(*args), warmup=1, iters=5)
+        library = _library_block(p, heads)
+        plain_free = swin_block_plain(*block_args(p['x'].to(bf), p['bias'].to(bf), None,
+                                                  p['region'], cast=lambda w: w.to(bf)))
+        _, library_rel = _rel_err(library(), plain_free)
+        del plain_free
+        library_ms = _time_ms(library)
+        library_device_ms = _device_ms(library)
         n_bytes = (2 * bnw * 49 * c + 12 * c * c + heads * 49 * 49) * 2 + \
             (13 * c + 2 * nw * 49) * 4
         flops = _block_ops(stage, True)
         bound, by = _bound_ms(n_bytes, flops, BF16_PEAK)
         k3, k4 = attention['per_stage'][stage]['ms'], mlp['per_stage'][stage]['ms']
         print(f'kernel swin_block stage {stage} x [{bnw}, 49, {c}] heads {heads} bf16: {ms:.4f} ms '
-              f'(device {device_ms:.4f}; {flops / ms / 1e9:.1f} TFLOP/s against '
+              f'(device {device_ms:.4f}; {flops / device_ms / 1e9:.1f} TFLOP/s against '
               f'{PEAK_FLOPS[BF16_PEAK] / 1e12:.0f} at the bound), plain {plain_ms:.4f} ms, '
-              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); kernels 3 + 4 at '
-              f'this stage, this run: {k3:.4f} + {k4:.4f} = {k3 + k4:.4f} ms (without '
-              f'the cuBLAS qkv and proj, LayerNorms and adds between them); |kernel - plain| / '
-              f'max |plain|: bf16 {worst[bf][1]:.3g} (<= {SWIN_BF16_REL_TOL:.3g}), float32 '
-              f'{worst[torch.float32][1]:.3g} (<= {SWIN_F32_REL_TOL:.3g}); two bf16 launches '
-              f'bit-equal')
+              f'float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); the block as '
+              f'PyTorch calls (library), this run: {library_ms:.4f} ms (device '
+              f'{library_device_ms:.4f}; max |library - plain| / max |plain| {library_rel:.3g}, '
+              f'no rowmask); kernels 3 + 4 at this stage, this run: {k3:.4f} + {k4:.4f} = '
+              f'{k3 + k4:.4f} ms (without the cuBLAS qkv and proj, LayerNorms and adds between '
+              f'them); |kernel - plain| / max |plain|: bf16 {worst[bf][1]:.3g} (<= '
+              f'{SWIN_BF16_REL_TOL:.3g}), float32 {worst[torch.float32][1]:.3g} (<= '
+              f'{SWIN_F32_REL_TOL:.3g}); two bf16 launches bit-equal')
         geo = kernel_geometry(bnw, c, sms)
-        geometry = dict(grid=geo.blocks, tiles=geo.tiles, windows_per_tile=geo.windows_per_tile,
-                        rounds=geo.rounds, waves=geo.tiles / geo.blocks, sms=sms)
+        attrs = kernel_attributes(c)
         if c in KERNEL_SHAPES:
-            attrs = kernel_attributes(c)
+            geometry = dict(grid=geo.blocks, tiles=geo.tiles,
+                            windows_per_tile=geo.windows_per_tile, rounds=geo.rounds,
+                            waves=geo.tiles / geo.blocks, sms=sms)
             geometry.update({k: v for k, v in attrs.items() if k != 'windows_per_tile'})
             print(f'  geometry: tiled, grid {geo.blocks} blocks of {attrs["threads"]} threads on '
                   f'{sms} SMs for {geo.tiles} tiles of G = {geo.windows_per_tile} windows '
@@ -921,15 +983,35 @@ def check_swin_block(dev, attention, mlp):
                   f'{attrs["registers"]} registers, {attrs["spill_bytes"]} B local (spill) a '
                   f'thread')
         else:
-            print(f'  geometry: one block of 256 threads a window, grid {geo.blocks} (the '
-                  f'window body this width keeps)')
+            launch_ms = _flat_launch_device_ms(lambda: swin_block(*args))
+            geometry = dict(form='flat rows', rows=geo.rows, ln_grid=geo.ln_blocks,
+                            heads_grid=geo.blocks, chunks=geo.chunks,
+                            warpgroups=geo.warpgroups, heads_rounds=geo.rounds,
+                            row_tiles=geo.row_tiles, tile_rows=GEMM_ROWS,
+                            gemm_shapes=GEMM_SHAPES,
+                            col_tiles=dict(zip(GEMM_LAUNCHES, geo.col_tiles)),
+                            gemm_grids=dict(zip(GEMM_LAUNCHES, geo.gemm_blocks)),
+                            gemm_rounds={k: geo.gemm_rounds(k) for k in GEMM_LAUNCHES},
+                            sms=sms, kernels=attrs, launch_device_ms=launch_ms)
+            print(f'  geometry: flat rows, {geo.rows} rows; LN1 / LN2 grid {geo.ln_blocks}; '
+                  f'attention grid {geo.blocks} ({geo.heads} heads x {geo.chunks} chunks) of '
+                  f'{geo.warpgroups} warpgroups, {geo.rounds} windows a warpgroup at most; '
+                  + '; '.join(f'{k} grid {geo.gemm_blocks[i]} ({GEMM_SHAPES[k][2]} a '
+                              f'multiprocessor) over {geo.row_tiles} x {geo.col_tiles[i]} '
+                              f'tiles of {GEMM_ROWS} x {GEMM_SHAPES[k][0]}, '
+                              f'{GEMM_SHAPES[k][1]} ring slots ({geo.gemm_rounds(k)} rounds)'
+                              for i, k in enumerate(GEMM_LAUNCHES)))
+            print('  launches: ' + '; '.join(
+                f'{k} device {launch_ms[k]:.4f} ms ({a["threads"]} threads, {a["smem_bytes"]} B '
+                f'shared, {a["registers"]} registers, {a["spill_bytes"]} B spill)'
+                for k, a in attrs.items()) + f'; sum {sum(launch_ms.values()):.4f} ms')
         per_stage.append(dict(shape=[bnw, 49, c], heads=heads, ms=ms, device_ms=device_ms,
                               plain_ms=plain_ms, f32_ms=f32_ms, bound_ms=bound, bound_by=by,
-                              library_ms=None, window_attention_ms=k3, swin_mlp_ms=k4,
-                              geometry=geometry,
+                              library_ms=library_ms, library_device_ms=library_device_ms,
+                              window_attention_ms=k3, swin_mlp_ms=k4, geometry=geometry,
                               max_abs_err=worst[bf][0],
                               max_abs_err_f32=worst[torch.float32][0]))
-        del p, args, args32
+        del p, args, args32, library
         torch.cuda.empty_cache()
     top = per_stage[0]
     return dict(name='swin_block', route='cuda', source='yolact_minimal_torch/csrc/swin_block.cu',
@@ -940,7 +1022,8 @@ def check_swin_block(dev, attention, mlp):
                           f'shifted and without rowmask; two bf16 launches bit-equal',
                 ms=top['ms'], kernel_ms=top['ms'], device_ms=top['device_ms'],
                 plain_ms=top['plain_ms'], bound_ms=top['bound_ms'], bound_by=top['bound_by'],
-                peak=BF16_PEAK, library_ms=None, per_stage=per_stage)
+                peak=BF16_PEAK, library_ms=top['library_ms'],
+                library_device_ms=top['library_device_ms'], per_stage=per_stage)
 
 
 def _swin_launches(path, forwards=1):

@@ -13,8 +13,9 @@ from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
-from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
-                                                 shared_bytes, swin_block, swin_block_plain)
+from yolact_minimal_torch.ops.swin_block import (FLAT_LAUNCHES, KERNEL_SHAPES,
+                                                 kernel_attributes, shared_bytes, swin_block,
+                                                 swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
 from yolact_minimal_torch.ops.window_attention import (window_attention,
                                                        window_attention_plain)
@@ -423,13 +424,17 @@ def _tile_case_params(card, rng, c, bnw, masked, padded, dtype=torch.bfloat16):
 
 
 # Window counts against the tiled bf16 kernel's tiles of G windows
-# (KERNEL_SHAPES; G = 1 where the body is one block a window) and its grid of
-# one block a multiprocessor (132 on an H100): one window,
-# G - 1 and G + 1 (partial last tiles), a count whose tiles leave blocks idle
-# and one whose tiles take a second round with a partial last tile.
-TILE_CASES = [(c, bnw) for c in (96, 192, 384, 768)
-              for g in (KERNEL_SHAPES[c][0] if c in KERNEL_SHAPES else 1,)
-              for bnw in sorted({1, max(g - 1, 1), g + 1, 100 * g - 1, 133 * g + 1})]
+# (KERNEL_SHAPES) and its grid of one block a multiprocessor (132 on an
+# H100): one window, G - 1 and G + 1 (partial last tiles), a count whose
+# tiles leave blocks idle and one whose tiles take a second round with a
+# partial last tile. C = 768 (the flat form, 49 bnw rows in tiles of 128 for
+# each product): 1, 2, 99 and 134 windows as before, stage 3's 144 and 301;
+# every count leaves a partial last row tile (49 bnw is no multiple of 128),
+# and from 99 windows on each product takes more than one round of blocks.
+TILE_CASES = [(c, bnw) for c in sorted(KERNEL_SHAPES)
+              for g in (KERNEL_SHAPES[c][0],)
+              for bnw in sorted({1, max(g - 1, 1), g + 1, 100 * g - 1, 133 * g + 1})] + \
+    [(768, bnw) for bnw in (1, 2, 99, 134, 144, 301)]
 
 
 @pytest.mark.parametrize('c,bnw', TILE_CASES)
@@ -457,9 +462,17 @@ def test_swin_block_kernel_is_deterministic(card, c):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize('c', sorted(KERNEL_SHAPES))
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
 def test_swin_block_kernel_is_built_as_the_geometry_assumes(card, c):
     attrs = kernel_attributes(c)
+    if c not in KERNEL_SHAPES:      # the flat form: each launch as its plan states
+        sizes = shared_bytes(c)
+        threads = (256, 128 * attn_block_ops.HEAD_SHAPES[c][0], 256, 256, 256, 256)
+        assert list(attrs) == list(FLAT_LAUNCHES) and len(sizes) == len(threads) == 6
+        for a, smem, n in zip(attrs.values(), sizes, threads):
+            assert a['threads'] == n and a['smem_bytes'] == smem <= 232448
+            assert 0 < a['registers'] * a['threads'] <= 65536
+        return
     g, cs, stages = KERNEL_SHAPES[c][:3]
     assert (attrs['windows_per_tile'], attrs['column_split'], attrs['stages']) == (g, cs, stages)
     assert attrs['threads'] == 128 * g * cs

@@ -9,9 +9,11 @@ import torch
 from yolact_minimal_tpu.models import swin as jax_swin
 from yolact_minimal_tpu.ops.swin_block import _block_xla, swin_block_fused
 from yolact_minimal_torch.ops.attn_block import SHARED_MEMORY_LIMIT, attn_block_plain
-from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, WEIGHT_BOX_ROWS,
-                                                 kernel_geometry, shared_bytes, swin_block,
-                                                 swin_block_plain)
+from yolact_minimal_torch.ops.swin_block import (FLAT_LAUNCHES, GEMM_LAUNCHES, GEMM_ROWS,
+                                                 GEMM_SHAPES, KERNEL_SHAPES, LN_ROWS,
+                                                 SCRATCH_WIDTHS, WEIGHT_BOX_ROWS, FlatGeometry,
+                                                 gemm_shape, kernel_geometry, scratch_bytes,
+                                                 shared_bytes, swin_block, swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import mlp_block_plain
 
 torch.set_num_threads(1)
@@ -149,10 +151,36 @@ def test_wrapper_runs_plain_on_cpu_and_checks_its_inputs():
         swin_block(*(None if t is None else t.to('meta') for t in args), heads)
 
 
-# Window counts for the bf16 kernel's launch: small ones against tiles of 1-3
-# windows, counts either side of a 132-multiprocessor grid, and the four
+# Window counts for the bf16 kernels' launches: small ones against tiles of
+# 1-3 windows, counts either side of a 132-multiprocessor grid, and the four
 # stages' counts of swin_tiny at 544, batch 16 (6400, 1600, 400, 144).
 GEOMETRY_BNW = [1, 2, 3, 4, 5, 131, 132, 133, 264, 265, 395, 397, 144, 400, 1600, 6400]
+
+
+def _check_flat_walks(geo, bnw, c, sms):
+    """C = 768: the attention walks every window once for each head; each
+    product walks every (row tile, column tile) of the flat rows once, on
+    persistent blocks; the LayerNorms' blocks cover the rows."""
+    assert isinstance(geo, FlatGeometry) and geo.rows == 49 * bnw
+    assert geo.heads == c // 32 and geo.blocks == geo.heads * geo.chunks
+    for head in range(geo.heads):
+        walks = [geo.windows(b, g) for b in range(head, geo.blocks, geo.heads)
+                 for g in range(geo.warpgroups)]
+        assert sorted(w for walk in walks for w in walk) == list(range(bnw))
+        assert geo.rounds == max(len(walk) for walk in walks)
+    assert (geo.ln_blocks - 1) * LN_ROWS < geo.rows <= geo.ln_blocks * LN_ROWS
+    assert (geo.row_tiles - 1) * GEMM_ROWS < geo.rows <= geo.row_tiles * GEMM_ROWS
+    for i, launch in enumerate(GEMM_LAUNCHES):
+        width, _, per_sm = GEMM_SHAPES[launch]
+        cols = gemm_shape(launch, c)[1] // width
+        tiles = geo.row_tiles * cols
+        assert geo.col_tiles[i] == cols and 1 <= geo.gemm_blocks[i] == min(per_sm * sms, tiles)
+        walks = [geo.tiles(launch, b) for b in range(geo.gemm_blocks[i])]
+        seen = sorted(t for walk in walks for t in walk)
+        assert seen == [(r, col) for r in range(geo.row_tiles) for col in range(cols)]
+        assert geo.gemm_rounds(launch) == -(-tiles // geo.gemm_blocks[i]) == \
+            max(len(walk) for walk in walks)
+        assert min(len(walk) for walk in walks) >= geo.gemm_rounds(launch) - 1
 
 
 @pytest.mark.parametrize('c', [96, 192, 384, 768])
@@ -160,12 +188,13 @@ GEOMETRY_BNW = [1, 2, 3, 4, 5, 131, 132, 133, 264, 265, 395, 397, 144, 400, 1600
 @pytest.mark.parametrize('sms', [132, 7])
 def test_kernel_geometry_walks_every_window_once(c, bnw, sms):
     geo = kernel_geometry(bnw, c, sms)
-    g = KERNEL_SHAPES[c][0] if c in KERNEL_SHAPES else 1
+    if c in SCRATCH_WIDTHS:     # the flat form: windows, then row tiles
+        _check_flat_walks(geo, bnw, c, sms)
+        return
+    g = KERNEL_SHAPES[c][0]
     assert geo.windows_per_tile == g and geo.tiles == -(-bnw // g)
-    if c in KERNEL_SHAPES:      # persistent: one block a multiprocessor at most
-        assert 1 <= geo.blocks <= min(sms, geo.tiles)
-    else:                       # one block a window
-        assert geo.blocks == geo.tiles == bnw and geo.rounds == 1
+    # persistent: one block a multiprocessor at most
+    assert 1 <= geo.blocks <= min(sms, geo.tiles)
     walks = [geo.windows(b) for b in range(geo.blocks)]
     # tiles of consecutive windows, G each but the last
     assert all(len(r) == g for walk in walks for r in walk if r.stop < bnw)
@@ -195,6 +224,33 @@ def test_kernel_shape_respects_its_limits(c):
         (64 * 128 if cs > 1 else 0)
     slot = max(96 * kq, 64 * k1, 96 * cs) * 128
     assert g * window + stages * slot < shared_bytes(c) <= SHARED_MEMORY_LIMIT
+
+
+def test_flat_form_respects_its_limits():
+    """The limits csrc/swin_block.cu's header states for C = 768: TMA boxes of
+    at most 256 rows (the attention's 64-row x and 32-row wqkv boxes, the
+    products' A and B tiles); product tiles that two warpgroups take on wgmma
+    (64 rows each, a width that is a multiple of 8 up to 256) from whole
+    64-wide k-blocks and column tiles; a ring of at least 3 slots; each
+    launch's shared memory within an H100 block's 227 KB, and the blocks
+    that share a multiprocessor within its 228 KB (1 KB of each reserved); a
+    scratch of the four buffers the launches pass on."""
+    c = 768
+    sizes = dict(zip(FLAT_LAUNCHES, shared_bytes(c)))
+    assert len(sizes) == len(FLAT_LAUNCHES) == 6
+    assert sizes['ln1'] == sizes['ln2'] == 0 and 32 * LN_ROWS <= 1024
+    assert 0 < sizes['heads'] <= SHARED_MEMORY_LIMIT
+    assert GEMM_ROWS == 2 * 64 and set(GEMM_SHAPES) == set(GEMM_LAUNCHES)
+    for launch in GEMM_LAUNCHES:
+        width, stages, per_sm = GEMM_SHAPES[launch]
+        k, n = gemm_shape(launch, c)
+        assert width % 8 == 0 and max(64, 32, GEMM_ROWS, width) <= 256
+        assert k % 64 == 0 and n % width == 0 and stages >= 3 and per_sm >= 1
+        ring = stages * (GEMM_ROWS + width) * 64 * 2
+        assert ring < sizes[launch] <= SHARED_MEMORY_LIMIT
+        assert per_sm * (sizes[launch] + 1024) <= 233472
+    rows = 144 * 49
+    assert scratch_bytes(144, c) == rows * 4 * c * 2 + rows * c * 4 + 2 * rows * c * 2
 
 
 def test_kernel_geometry_rejects_bad_arguments():

@@ -1,4 +1,5 @@
-// A whole Swin block on windowed PRE-norm rows, one launch:
+// A whole Swin block on windowed PRE-norm rows, in one call (one launch at
+// C <= 384, six at C = 768):
 //
 //     h = x + attention(LN1(x) * rowmask  Wqkv^T + bqkv) Wproj^T + bproj
 //     y = h + fc2(gelu_erf(fc1(LN2(h))))                  x, y: [B*nW, 49, C]
@@ -24,7 +25,9 @@
 //
 // The bound is operations, 24 C^2 + 4 * 49 C a row (0.072-0.102 ms at 989
 // TFLOP/s at the four stages of swin_tiny at 544, batch 16), against 4 C bytes
-// of rows. Two bf16 bodies, chosen at compile time by width (swin_block()).
+// of rows. Two bf16 forms, chosen at compile time by width (swin_block()):
+// tiles of windows in one launch (C = 96, 192, 384), flat rows in six
+// (C = 768).
 //
 // Tiled (C = 96, 192, 384), for the H100 (sm_90a):
 // - A block takes a tile of G consecutive windows; CS warpgroups share a
@@ -72,10 +75,54 @@
 //   a few hundred of tensor-core work in it). 49 live rows fill each 64-row
 //   product (77%); at C = 384, 400 tiles take 4 rounds on 132 SMs.
 //
-// One block a window (C = 768): see the section below. A tiled form does not
-// fit there: a window's proj and fc2 accumulators ([64, 768] float32) over 4
-// warpgroups, its LN and attention-output tiles (2 x 84 KB) and a ring of
-// 4 x 96-row slices exceed the registers and the 227 KB of shared memory.
+// Flat rows (C = 768; the same TPU kernel, swin_block_fused, at stage 3 of
+// Swin-T), six launches on the rows taken as one [R = 49 bnw, C] matrix, in
+// stream order, through a scratch buffer (FlatScratch):
+// - Why not tiles of windows: a window's proj and fc2 accumulators ([64,
+//   768] float32), its LN and attention-output tiles (2 x 84 KB) and a
+//   weight ring exceed both the registers and the 227 KB of shared memory;
+//   and a body that holds one window a block streams all 4 C^2 weights (14 MB)
+//   through every block, 2 GB of L2 reads a launch at stage 3 for 101 GFLOP
+//   (that body, which this form replaces: 2.09 ms, 48 TFLOP/s). Here every
+//   weight slice a tile loads serves 128 rows, not 49 live of 64, and the
+//   flat rows need no padding rows (7056 = 55.1 tiles of 128).
+// - LN1 (swin_block_ln1_kernel): a warp a row, float32 statistics, times the
+//   token's rowmask, rounded, into the LayerNorm rows; once, since the
+//   attention reads its input once a head.
+// - Attention (swin_block_heads_kernel): attn_block.cu's phase 1
+//   (swin_tiled.cuh::attend_heads) on the LayerNorm rows: a block a (head,
+//   chunk of windows), the head's 96 q | k | v rows of wqkv resident, rows by
+//   TMA, q | k | v on wgmma, attention on mma.sync, the head's 32 output
+//   columns rounded once.
+// - proj (swin_block_proj_kernel), fc1 (swin_block_fc1_kernel) and fc2
+//   (swin_block_fc2_kernel): one persistent wgmma product (flat_gemm) over
+//   tiles of 128 rows by BN columns, both operands by TMA through a ring of
+//   64-wide k-blocks (GemmShape), with the epilogue of each: h = x + acc +
+//   bproj in float32 into the scratch; gelu(acc + b1) in float32 (erff),
+//   rounded once, into the hidden rows [R, 4 C]; h + acc + b2, rounded once,
+//   into out. Between proj and fc1, LN2 (swin_block_ln2_kernel) of the
+//   float32 h, rounded, into the LayerNorm rows. Fixed tile orders, no
+//   atomics: the same bits every run. The hidden rows' round trip (87 MB at
+//   stage 3, mostly in the 50 MB L2) costs less than the weight re-reads of
+//   a fused row-tile MLP at this width (kernel 4 at C = 768: 0.4172 ms).
+//     launch     threads  grid                 shared memory
+//     LN1, LN2   256      rows / 8             none
+//     attention  256      heads x (SMs/heads)  230536 B
+//     proj, fc2  256      1 a multiprocessor   BN 192, 4 slots: 164928 B
+//     fc1        256      2 a multiprocessor   BN 128, 3 slots:  99376 B
+//   fc1 runs two blocks a multiprocessor so that gelu's erff in one block's
+//   epilogue runs under the other's products.
+// - What bounds it (stage 3, [144, 49, 768], NVIDIA H100 80GB HBM3 at 700 W;
+//   chip_smoke.py phase 3 and probes/h100_swin_block/variants.py, PERF.md):
+//   0.34-0.37 ms device against the window body's 2.09 and the bound's
+//   0.102. The
+//   attention takes a third (0.125 ms: attn_block's phase 1 as it is,
+//   latency-bound on its x-row ring and the mma.sync attention); fc1 0.114,
+//   of which the gelu epilogue ~0.025 and the stores ~0.027 (0.089 without
+//   the gelu, 0.062 storing nothing; erff beats the JAX kernel's rational
+//   erf, whose rcp and exp load the special-function unit: 0.120); fc2
+//   0.077, its operands' L2 traffic (437 MB at 128 x 192 tiles, ~5.7 TB/s);
+//   proj 0.027, LN1 0.017, LN2 0.011.
 //
 // float32: one block of 256 threads a window on the CUDA cores, sums in index
 // order, no TF32, so that a float32 run on the card can be held to a CPU run;
@@ -562,134 +609,311 @@ swin_block_bf16_sm90_kernel(const __grid_constant__ CUtensorMap tm_qkv,
   }
 }
 
-// ------------------------------------- bf16, one block a window -----
+// -------------------------------------------- bf16, flat rows (C = 768) -----
 //
-// PR 3's body, kept at C = 768 (swin_block()): 256 threads on one window;
-// the attention half is swin_common.cuh's one-window body (mma.sync, weight
-// chunks by cp.async one ahead), the MLP half mlp_hidden_walk in two passes
-// of 32 rows.
+// Six launches on the rows taken as one flat [R = bnw * 49, C] matrix; what
+// passes between them lies in the scratch (FlatScratch), the order on the
+// stream orders them.
 
-// Where the float32 h [49, C] lives between the halves: in shared memory
-// where it fits beside the rest (C = 96, 384); else through the scratch
-// tensor (C = 768, and 192, where leaving it out lets two blocks share an SM).
-template <int C> struct HShared { static constexpr bool value = C == 96 || C == 384; };
+constexpr int FLAT_C = 768;
+constexpr int LN_ROWS = 8;              // rows a LayerNorm block, one a warp
 
-// BM: rows per pass of the MLP walk.
-template <int C, int BM>
-__global__ void __launch_bounds__(THREADS, C <= 192 ? 2 : 1)
-swin_block_bf16_window_kernel(const bf16* __restrict__ x, const float* __restrict__ rowmask,
-                       const float* __restrict__ ln1s, const float* __restrict__ ln1b,
-                       const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
-                       const bf16* __restrict__ bias, const int* __restrict__ region,
-                       const bf16* __restrict__ wproj, const float* __restrict__ bproj,
-                       const float* __restrict__ ln2s, const float* __restrict__ ln2b,
-                       const bf16* __restrict__ k1, const float* __restrict__ b1,
-                       const bf16* __restrict__ k2, const float* __restrict__ b2,
-                       float* scratch, bf16* __restrict__ out, int nw) {
-  using S = WindowSmem<C>;
-  constexpr int LDA = S::LDA;
-  constexpr bool H_SHARED = HShared<C>::value;
-  constexpr int RT = BM / 16, WPR = WARPS / RT, NT = (C / 16) / WPR;
-  static_assert(LDA == MlpTiles<C>::LDA, "the MLP walk reads the window buffer's rows");
-  static_assert(MlpTiles<C>::SW * 2 <= S::SP - S::SO, "MLP weight slices fit over so .. svt");
-  static_assert(BM * MlpTiles<C>::LDH * 2 <= S::STAT - S::SP, "gelu chunk fits over sp");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sx = reinterpret_cast<bf16*>(smem + S::SX);
-  const bf16* so = reinterpret_cast<const bf16*>(smem + S::SO);
-  const int w = blockIdx.x;
-  const size_t base = static_cast<size_t>(w) * N * C;
-  float* hbuf = H_SHARED ? reinterpret_cast<float*>(smem + S::END) : scratch + base;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  WeightStream<C> stream;
-  window_setup<C>(smem, stream, wqkv, wproj);
-  for (int r = warp; r < N; r += WARPS) {
-    const float mul = rowmask == nullptr ? 1.0f : rowmask[static_cast<size_t>(w % nw) * N + r];
-    layer_norm_row<bf16, bf16, C>(x + base + static_cast<size_t>(r) * C, ln1s, ln1b, mul,
-                                  sx + r * LDA);
+// One warp a row of src [rows, C]: LayerNorm in float32 (the mean, then the
+// mean square of the differences, as layer_norm_row, summed in another
+// order), times the rowmask of the row's token where rowmask is not null
+// (row r is token r % 49 of window r / 49, which uses row (r / 49) % nw of
+// rowmask), rounded to bf16 into dst. Lane l takes the 16-byte chunks l,
+// l + 32, ... of the row.
+template <typename TIn, int C>
+__device__ __forceinline__ void ln_rows(const TIn* __restrict__ src,
+                                        const float* __restrict__ rowmask,
+                                        const float* __restrict__ lns,
+                                        const float* __restrict__ lnb, bf16* __restrict__ dst,
+                                        int rows, int nw) {
+  constexpr int E = 16 / sizeof(TIn), Q = C / (32 * E);
+  static_assert(C % (32 * E) == 0, "whole chunks a lane");
+  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const TIn* s = src + static_cast<size_t>(row) * C;
+  float v[Q][E];
+  float sum = 0.0f;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    load_run(s + (lane + 32 * q) * E, v[q]);
+#pragma unroll
+    for (int i = 0; i < E; ++i) sum += v[q][i];
   }
-  window_heads_bf16<C>(smem, stream, bqkv, bias,
-                       region == nullptr ? nullptr : region + static_cast<size_t>(w % nw) * N);
-
-  // h = x + proj + bproj, float32
-  {
-    const int er = (warp % 4) * 16 + lane / 4, ec = (lane % 4) * 2;
-    const bf16* o_lane = window_a_lane<LDA>(so);
-    for (int n0 = 0; n0 < C; n0 += GN) {
-      float acc[3][2][4];
-      window_gemm96<C>(o_lane, stream, acc);
+  const float mu = warp_sum(sum) / C;
+  float sq = 0.0f;
 #pragma unroll
-      for (int t = 0; t < 3; ++t)
+  for (int q = 0; q < Q; ++q)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int col = n0 + ((warp / 4) * 3 + t) * 16 + half * 8 + ec;
-          const float2 b = *reinterpret_cast<const float2*>(bproj + col);
-#pragma unroll
-          for (int hi = 0; hi < 2; ++hi) {
-            const int row = er + hi * 8;
-            if (row < N) {
-              const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
-                  x + base + static_cast<size_t>(row) * C + col);
-              *reinterpret_cast<float2*>(hbuf + row * C + col) =
-                  make_float2((__bfloat162float(xv.x) + acc[t][half][hi * 2]) + b.x,
-                              (__bfloat162float(xv.y) + acc[t][half][hi * 2 + 1]) + b.y);
-            }
-          }
-        }
+    for (int i = 0; i < E; ++i) {
+      v[q][i] -= mu;
+      sq += v[q][i] * v[q][i];
     }
+  const float inv = 1.0f / sqrtf(warp_sum(sq) / C + LN_EPS);
+  const float m =
+      rowmask == nullptr ? 1.0f : rowmask[static_cast<size_t>((row / N) % nw) * N + row % N];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c0 = (lane + 32 * q) * E;
+    uint32_t pk[E / 2];
+#pragma unroll
+    for (int i = 0; i < E; i += 2)
+      pk[i / 2] = pack_bf16((v[q][i] * inv * lns[c0 + i] + lnb[c0 + i]) * m,
+                            (v[q][i + 1] * inv * lns[c0 + i + 1] + lnb[c0 + i + 1]) * m);
+    bf16* d = dst + static_cast<size_t>(row) * C + c0;
+    if constexpr (E == 8)
+      *reinterpret_cast<uint4*>(d) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    else
+      *reinterpret_cast<uint2*>(d) = make_uint2(pk[0], pk[1]);
   }
-  __syncthreads();                      // h is whole; so and the weight slots are free
+}
 
-  for (int r = warp; r < N; r += WARPS)
-    layer_norm_row<float, bf16, C>(hbuf + r * C, ln2s, ln2b, 1.0f, sx + r * LDA);
+// The three products: A [R, K] bf16 times B^T, B [N, K] as nn.Linear keeps
+// it, on wgmma (m64nBNk16). A persistent block of two warpgroups walks
+// tiles of BM = 128 rows (64 a warpgroup) by BN columns, tiles blockIdx.x,
+// + gridDim.x, ... (row tile t / NT, column tile t % NT), in a fixed order:
+// no atomics, the same bits every run. Each 64-wide k-block is one use of a
+// ring of STAGES slots, A's 128 x 64 and B's BN x 64 by TMA (rows past R
+// arrive as zeros and are never stored); thread 0 keeps STAGES - 1 uses in
+// flight across tiles, so the next tile's first k-blocks land under this
+// one's epilogue. PER_SM blocks share a multiprocessor, so that one's
+// epilogue runs under another's products.
+template <int BN_, int STAGES_, int PER_SM_> struct GemmShapeOf {
+  static constexpr int BN = BN_, STAGES = STAGES_, PER_SM = PER_SM_;
+};
+// proj and fc2: BN = 192, four slots, one block a multiprocessor; fc1: two
+// blocks a multiprocessor (BN = 128, three slots each), so that gelu's erff
+// in one block's epilogue runs under the other's products.
+template <int K, int N> struct GemmShape : GemmShapeOf<192, 4, 1> {};
+template <> struct GemmShape<FLAT_C, 4 * FLAT_C> : GemmShapeOf<128, 3, 2> {};
 
-  bf16* mw = reinterpret_cast<bf16*>(smem + S::SO);     // k1 / k2 slices
-  bf16* sh = reinterpret_cast<bf16*>(smem + S::SP);     // gelu chunk
-  const int rt = warp % RT, wc = warp / RT;
-  for (int row0 = 0; row0 < WROWS; row0 += BM) {
-    const bf16* a_lane = sx + min(row0 + rt * 16 + lane_a_row(), N) * LDA + lane_a_k();
-    float yacc[NT][2][4];
-    mlp_hidden_walk<C, BM, false>(a_lane, sh, mw, k1, b1, k2, yacc);
-    const int er = row0 + rt * 16 + lane / 4, ec = (lane % 4) * 2;
+template <int K, int N> struct FlatGemm {
+  static constexpr int BM = 128, BN = GemmShape<K, N>::BN, THREADS = 256;
+  static constexpr int STAGES = GemmShape<K, N>::STAGES, PER_SM = GemmShape<K, N>::PER_SM;
+  static constexpr int KB = K / 64, NT = N / BN;
+  static constexpr int A_BYTES = BM * 128, SLOT = A_BYTES + BN * 128;
+  static constexpr int BAR = STAGES * SLOT;                 // full[STAGES], empty[STAGES]
+  static constexpr int SMEM = BAR + 2 * STAGES * 8 + 1024;  // + aligning the base
+  static_assert(K % 64 == 0 && N % BN == 0 && A_BYTES % 1024 == 0 && SLOT % 1024 == 0, "tiles");
+  static_assert(STAGES >= 3 && PER_SM * (SMEM + 1024) <= 233472,   // 1 KB of each block reserved
+                "ring, shared memory");
+};
+
+using ProjGemm = FlatGemm<FLAT_C, FLAT_C>;
+using Fc1Gemm = FlatGemm<FLAT_C, 4 * FLAT_C>;
+using Fc2Gemm = FlatGemm<4 * FLAT_C, FLAT_C>;
+
+// The product's body; epi(row, col, a0, a1) takes the accumulators of
+// columns col, col + 1 of a row below `rows`.
+template <int K, int N, typename Epilogue>
+__device__ __forceinline__ void flat_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                                          int rows, Epilogue epi) {
+  using P = FlatGemm<K, N>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* empty = full + P::STAGES;
+  const int tiles = (rows + P::BM - 1) / P::BM * P::NT;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, P::THREADS / 32);  // every warp releases every slot
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Thread 0: start the copies of every use before `upto`; use v is k-block
+  // v % KB of the block's tile v / KB and waits for the release of use
+  // v - STAGES.
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto; ++issued) {
+      const int t = blockIdx.x + (issued / P::KB) * gridDim.x;
+      if (t >= tiles) return;
+      const int s = issued % P::STAGES, k0 = (issued % P::KB) * 64;
+      const uint32_t dst = base + s * P::SLOT;
+      sm90::mbar_wait(empty + s, ((issued / P::STAGES) & 1) ^ 1);
+      sm90::mbar_expect_tx(full + s, P::SLOT);
+      sm90::tma_load_2d(dst, &tm_a, k0, (t / P::NT) * P::BM, full + s);
+      sm90::tma_load_2d(dst + P::A_BYTES, &tm_b, k0, (t % P::NT) * P::BN, full + s);
+    }
+  };
+  const int wg = threadIdx.x / 128, wq = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int er = 16 * wq + lane / 4, ec = 2 * (lane % 4);    // accumulator row and column
+  RingReader<P::STAGES, P::SLOT> ring{full, empty, base};
+  if (threadIdx.x == 0) issue_upto(P::STAGES - 1);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    float acc[P::BN / 2];                 // [64, BN] of wgmma's accumulator layout
 #pragma unroll
-    for (int t = 0; t < NT; ++t)
+    for (int z = 0; z < P::BN / 2; ++z) acc[z] = 0.0f;
+#pragma unroll 1
+    for (int kb = 0; kb < P::KB; ++kb) {
+      const uint32_t slot = ring.acquire(issue_upto);
+      const uint64_t da = sm90::sw128_desc(slot + wg * 64 * 128);
+      const uint64_t db = sm90::sw128_desc(slot + P::A_BYTES);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = (wc * NT + t) * 16 + half * 8 + ec;
-        const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+      for (int k = 0; k < 64; k += 16)
+        sm90::wgmma_ss(acc, sm90::desc_add(da, k * 2), sm90::desc_add(db, k * 2), kb > 0 || k > 0);
+      ring.retire();
+    }
+    ring.drain();
+    sm90::fence_regs(acc);
+    const int row0 = (t / P::NT) * P::BM + wg * 64 + er, col0 = (t % P::NT) * P::BN + ec;
 #pragma unroll
-        for (int hi = 0; hi < 2; ++hi) {
-          const int row = er + hi * 8;
-          if (row < N) {
-            const float2 hv = *reinterpret_cast<const float2*>(hbuf + row * C + col);
-            *reinterpret_cast<uint32_t*>(out + base + static_cast<size_t>(row) * C + col) =
-                pack_bf16((hv.x + yacc[t][half][hi * 2]) + b.x,
-                          (hv.y + yacc[t][half][hi * 2 + 1]) + b.y);
-          }
-        }
+    for (int j = 0; j < P::BN / 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = row0 + 8 * hi;
+        if (row < rows) epi(row, col0 + 8 * j, acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
       }
   }
 }
 
+// LN1(x) * rowmask, rounded, into the scratch's LayerNorm rows.
+__global__ void __launch_bounds__(LN_ROWS * 32)
+swin_block_ln1_kernel(const bf16* __restrict__ x, const float* __restrict__ rowmask,
+                      const float* __restrict__ lns, const float* __restrict__ lnb,
+                      bf16* __restrict__ xn, int rows, int nw) {
+  ln_rows<bf16, FLAT_C>(x, rowmask, lns, lnb, xn, rows, nw);
+}
 
-template <int C, int BM>
-int launch_window(const void* x, const void* rowmask, const void* ln1s, const void* ln1b,
-                const void* wqkv, const void* bqkv, const void* bias, const void* region,
-                const void* wproj, const void* bproj, const void* ln2s, const void* ln2b,
-                const void* k1, const void* b1, const void* k2, const void* b2, void* scratch,
+// The attention of every (window, head): attn_block.cu's phase 1.
+__global__ void __launch_bounds__(HeadPlan<FLAT_C>::THREADS, 1)
+swin_block_heads_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_qkv,
+                        const float* __restrict__ bqkv, const bf16* __restrict__ bias,
+                        const int* __restrict__ region, bf16* __restrict__ ao, int bnw, int nw) {
+  attend_heads<FLAT_C>(tm_x, tm_qkv, bqkv, bias, region, ao, bnw, nw);
+}
+
+// h = x + proj + bproj, float32.
+__global__ void __launch_bounds__(ProjGemm::THREADS, ProjGemm::PER_SM)
+swin_block_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
+                       const __grid_constant__ CUtensorMap tm_b, const bf16* __restrict__ x,
+                       const float* __restrict__ bproj, float* __restrict__ h, int rows) {
+  flat_gemm<FLAT_C, FLAT_C>(tm_a, tm_b, rows, [&](int row, int col, float a0, float a1) {
+    const size_t e = static_cast<size_t>(row) * FLAT_C + col;
+    const float2 b = *reinterpret_cast<const float2*>(bproj + col);
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + e));
+    *reinterpret_cast<float2*>(h + e) = make_float2((xv.x + a0) + b.x, (xv.y + a1) + b.y);
+  });
+}
+
+// LN2(h), rounded, into the scratch's LayerNorm rows.
+__global__ void __launch_bounds__(LN_ROWS * 32)
+swin_block_ln2_kernel(const float* __restrict__ h, const float* __restrict__ lns,
+                      const float* __restrict__ lnb, bf16* __restrict__ hn, int rows) {
+  ln_rows<float, FLAT_C>(h, nullptr, lns, lnb, hn, rows, 1);
+}
+
+// u = gelu(fc1 + b1) in float32, rounded once.
+__global__ void __launch_bounds__(Fc1Gemm::THREADS, Fc1Gemm::PER_SM)
+swin_block_fc1_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ b1,
+                      bf16* __restrict__ u, int rows) {
+  flat_gemm<FLAT_C, 4 * FLAT_C>(tm_a, tm_b, rows, [&](int row, int col, float a0, float a1) {
+    const float2 b = *reinterpret_cast<const float2*>(b1 + col);
+    *reinterpret_cast<uint32_t*>(u + static_cast<size_t>(row) * 4 * FLAT_C + col) =
+        pack_bf16(gelu_erf(a0 + b.x), gelu_erf(a1 + b.y));
+  });
+}
+
+// y = h + fc2 + b2 in float32, rounded once.
+__global__ void __launch_bounds__(Fc2Gemm::THREADS, Fc2Gemm::PER_SM)
+swin_block_fc2_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ h,
+                      const float* __restrict__ b2, bf16* __restrict__ out, int rows) {
+  flat_gemm<4 * FLAT_C, FLAT_C>(tm_a, tm_b, rows, [&](int row, int col, float a0, float a1) {
+    const size_t e = static_cast<size_t>(row) * FLAT_C + col;
+    const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+    const float2 hv = *reinterpret_cast<const float2*>(h + e);
+    *reinterpret_cast<uint32_t*>(out + e) = pack_bf16((hv.x + a0) + b.x, (hv.y + a1) + b.y);
+  });
+}
+
+// The flat form's scratch for `rows` rows, byte offsets from its start: the
+// hidden activations u [rows, 4C] bf16, h [rows, C] float32, the attention
+// output [rows, C] bf16 and the LayerNorm rows [rows, C] bf16 (LN1's, then
+// LN2's); every offset a multiple of 16 bytes (C is).
+struct FlatScratch {
+  size_t u, h, ao, ln, bytes;
+  explicit FlatScratch(size_t rows)
+      : u(0), h(rows * 4 * FLAT_C * 2), ao(h + rows * FLAT_C * 4), ln(ao + rows * FLAT_C * 2),
+        bytes(ln + rows * FLAT_C * 2) {}
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The grid of a product over `rows` rows: PER_SM blocks a multiprocessor, or
+// one a tile where there are fewer tiles (ops/swin_block.py::kernel_geometry).
+template <int K, int N>
+int gemm_grid(int rows, int sms) {
+  using P = FlatGemm<K, N>;
+  const int tiles = (rows + P::BM - 1) / P::BM * P::NT;
+  return tiles < P::PER_SM * sms ? tiles : P::PER_SM * sms;
+}
+
+int launch_flat(const void* x, const float* rowmask, const float* ln1s, const float* ln1b,
+                const void* wqkv, const float* bqkv, const void* bias, const int* region,
+                const void* wproj, const float* bproj, const float* ln2s, const float* ln2b,
+                const void* k1, const float* b1, const void* k2, const float* b2, void* scratch,
                 void* out, int bnw, int nw, cudaStream_t stream) {
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
-  constexpr bool H_SHARED = HShared<C>::value;
-  if (!H_SHARED && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = WindowSmem<C>::END + (H_SHARED ? N * C * 4 : 0);
-  auto kernel = swin_block_bf16_window_kernel<C, BM>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int C = FLAT_C, H = 4 * C;
+  using PH = HeadPlan<C>;
+  using PP = ProjGemm;
+  using P1 = Fc1Gemm;
+  using P2 = Fc2Gemm;
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = bnw * N;
+  const FlatScratch sc(rows);
+  unsigned char* s = static_cast<unsigned char*>(scratch);
+  bf16* u = reinterpret_cast<bf16*>(s + sc.u);
+  float* h = reinterpret_cast<float*>(s + sc.h);
+  bf16* ao = reinterpret_cast<bf16*>(s + sc.ao);
+  bf16* ln = reinterpret_cast<bf16*>(s + sc.ln);
+  CUtensorMap tx, tq, ta, tp, tl, t1, tu, t2;
+  if (!sm90::map_sw128(&tx, ln, C, rows, 64) || !sm90::map_sw128(&tq, wqkv, C, 3 * C, HD) ||
+      !sm90::map_sw128(&ta, ao, C, rows, PP::BM) || !sm90::map_sw128(&tp, wproj, C, C, PP::BN) ||
+      !sm90::map_sw128(&tl, ln, C, rows, P1::BM) || !sm90::map_sw128(&t1, k1, C, H, P1::BN) ||
+      !sm90::map_sw128(&tu, u, H, rows, P2::BM) || !sm90::map_sw128(&t2, k2, H, C, P2::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem(swin_block_heads_kernel, PH::SMEM);
+  if (err == cudaSuccess) err = allow_smem(swin_block_proj_kernel, PP::SMEM);
+  if (err == cudaSuccess) err = allow_smem(swin_block_fc1_kernel, P1::SMEM);
+  if (err == cudaSuccess) err = allow_smem(swin_block_fc2_kernel, P2::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<bnw, THREADS, smem, stream>>>(
-      h(x), f(rowmask), f(ln1s), f(ln1b), h(wqkv), f(bqkv), h(bias), static_cast<const int*>(region),
-      h(wproj), f(bproj), f(ln2s), f(ln2b), h(k1), f(b1), h(k2), f(b2),
-      static_cast<float*>(scratch), static_cast<bf16*>(out), nw);
+  const int ln_grid = (rows + LN_ROWS - 1) / LN_ROWS;
+  const int chunks = sms / PH::HEADS > 1 ? sms / PH::HEADS : 1;
+  const bf16* xb = static_cast<const bf16*>(x);
+  swin_block_ln1_kernel<<<ln_grid, LN_ROWS * 32, 0, stream>>>(xb, rowmask, ln1s, ln1b, ln, rows,
+                                                                nw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  swin_block_heads_kernel<<<PH::HEADS * chunks, PH::THREADS, PH::SMEM, stream>>>(
+      tx, tq, bqkv, static_cast<const bf16*>(bias), region, ao, bnw, nw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  swin_block_proj_kernel<<<gemm_grid<C, C>(rows, sms), PP::THREADS, PP::SMEM, stream>>>(
+      ta, tp, xb, bproj, h, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  swin_block_ln2_kernel<<<ln_grid, LN_ROWS * 32, 0, stream>>>(h, ln2s, ln2b, ln, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  swin_block_fc1_kernel<<<gemm_grid<C, H>(rows, sms), P1::THREADS, P1::SMEM, stream>>>(
+      tl, t1, b1, u, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  swin_block_fc2_kernel<<<gemm_grid<H, C>(rows, sms), P2::THREADS, P2::SMEM, stream>>>(
+      tu, t2, h, b2, static_cast<bf16*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -809,10 +1033,12 @@ int attributes_sm90(int* g) {
 // b2 [c]. x, the four weight matrices, bias and out are bf16 when is_bf16 is
 // nonzero, else float32; everything else is float32. bf16 at c = 96, 192 and
 // 384 runs the tiled kernel, whose grid is `blocks` (ops/swin_block.py::
-// kernel_geometry), at most one a tile; at c = 768 one block a window, with
-// scratch float32 [bnw, 49, c] (null otherwise). c is 96, 192, 384 or 768;
-// any other width, a bad grid or bf16 weights not 16-byte aligned return
-// cudaErrorInvalidValue.
+// kernel_geometry), at most one a tile; at c = 768 the six launches of the
+// flat form, on grids of the current device's multiprocessors, with scratch
+// of FlatScratch(bnw * 49).bytes bytes, 16-byte aligned (null otherwise). c
+// is 96, 192, 384 or 768; any other width, a bad grid, missing scratch or
+// bf16 weights not 16-byte aligned return cudaErrorInvalidValue; the first
+// launch refused returns its error and the launches after it do not run.
 extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
                           const void* ln1b, const void* wqkv, const void* bqkv,
                           const void* bias, const void* region, const void* wproj,
@@ -832,21 +1058,20 @@ extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
                                          wproj, bproj, ln2s, ln2b, k1, b1, k2, b2, out,    \
                                          bnw, nw, blocks, s)                               \
                    : SWIN_BLOCK_F32(C);
-#define SWIN_BLOCK_WINDOW(C, BM)                                                           \
-  case C:                                                                                  \
-    return is_bf16 ? launch_window<C, BM>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, region, \
-                                          wproj, bproj, ln2s, ln2b, k1, b1, k2, b2,        \
-                                          scratch, out, bnw, nw, s)                        \
-                   : SWIN_BLOCK_F32(C);
   switch (c) {
     SWIN_BLOCK_TILED(96)
     SWIN_BLOCK_TILED(192)
     SWIN_BLOCK_TILED(384)
-    SWIN_BLOCK_WINDOW(768, 32)
+    case FLAT_C: {
+      auto f = [](const void* p) { return static_cast<const float*>(p); };
+      return is_bf16 ? launch_flat(x, f(rowmask), f(ln1s), f(ln1b), wqkv, f(bqkv), bias, reg,
+                                   wproj, f(bproj), f(ln2s), f(ln2b), k1, f(b1), k2, f(b2),
+                                   scratch, out, bnw, nw, s)
+                     : SWIN_BLOCK_F32(FLAT_C);
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SWIN_BLOCK_WINDOW
 #undef SWIN_BLOCK_TILED
 #undef SWIN_BLOCK_F32
 }
@@ -860,4 +1085,47 @@ extern "C" int swin_block_attributes(int c, int* g) {
     case 384: return attributes_sm90<384>(g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The compiled shape of the flat form's launch `which` (c = 768), in the
+// order they run: 0 LN1, 1 the attention, 2 proj, 3 LN2, 4 fc1, 5 fc2, into
+// g[0..4): threads a block, dynamic shared memory bytes a block, registers
+// and local (spill) bytes a thread.
+extern "C" int swin_block_flat_attributes(int which, int* g) {
+  constexpr int C = FLAT_C;
+  cudaFuncAttributes attr;
+  int threads = 0, smem = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (which) {
+    case 0:
+      threads = LN_ROWS * 32;
+      err = cudaFuncGetAttributes(&attr, swin_block_ln1_kernel);
+      break;
+    case 1:
+      threads = HeadPlan<C>::THREADS, smem = HeadPlan<C>::SMEM;
+      err = cudaFuncGetAttributes(&attr, swin_block_heads_kernel);
+      break;
+    case 2:
+      threads = ProjGemm::THREADS, smem = ProjGemm::SMEM;
+      err = cudaFuncGetAttributes(&attr, swin_block_proj_kernel);
+      break;
+    case 3:
+      threads = LN_ROWS * 32;
+      err = cudaFuncGetAttributes(&attr, swin_block_ln2_kernel);
+      break;
+    case 4:
+      threads = Fc1Gemm::THREADS, smem = Fc1Gemm::SMEM;
+      err = cudaFuncGetAttributes(&attr, swin_block_fc1_kernel);
+      break;
+    case 5:
+      threads = Fc2Gemm::THREADS, smem = Fc2Gemm::SMEM;
+      err = cudaFuncGetAttributes(&attr, swin_block_fc2_kernel);
+      break;
+    default:
+      break;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[4] = {threads, smem, attr.numRegs, static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 4; ++i) g[i] = v[i];
+  return 0;
 }

@@ -1,12 +1,15 @@
-// Device code shared by the two tiled bf16 bodies for the H100 (sm_90a):
+// Device code shared by the bf16 bodies for the H100 (sm_90a) of
 // swin_block.cu (a whole Swin block) and attn_block.cu (its attention half).
-// Both walk tiles of windows on persistent blocks, run qkv head by head and
-// proj on wgmma from 128-byte swizzled tiles (sm90.cuh), feed weight slices
-// through a ring of TMA loads, and attend per (window, head) on mma.sync.
+// Their tiled forms walk tiles of windows on persistent blocks, run qkv head
+// by head and proj on wgmma from 128-byte swizzled tiles (sm90.cuh), feed
+// weight slices through a ring of TMA loads, and attend per (window, head)
+// on mma.sync.
 //
 // Here: the per-head pieces (the head's bias in registers, the attention of
-// a warp's 16 query rows, the qkv epilogue into the q / k / v tiles) and the
-// consumers' side of the weight ring.
+// a warp's 16 query rows, the qkv epilogue into the q / k / v tiles), the
+// consumers' side of the weight ring, and the head-stationary attention
+// pass (attend_heads: attn_block.cu's phase 1 at C = 192-768, and the
+// attention launch of swin_block.cu at C = 768).
 #pragma once
 #include "sm90.cuh"
 #include "swin_common.cuh"
@@ -250,5 +253,164 @@ template <int STAGES, int SLOT> struct RingReader {
     pending = -1;
   }
 };
+
+// Per width: warpgroups a block and x ring slots a warpgroup of phase 1.
+template <int WGN_, int XS_> struct HeadShapeOf {
+  static constexpr int WGN = WGN_, XS = XS_;
+};
+template <int C> struct HeadShape;
+template <> struct HeadShape<192> : HeadShapeOf<3, 5> {};
+template <> struct HeadShape<384> : HeadShapeOf<3, 5> {};
+template <> struct HeadShape<768> : HeadShapeOf<2, 4> {};
+
+template <int C> struct HeadPlan {
+  static constexpr int WGN = HeadShape<C>::WGN, XS = HeadShape<C>::XS;
+  static constexpr int THREADS = WGN * 128;
+  static constexpr int HEADS = C / HD, KB = C / 64;
+  static constexpr int XT = 64 * 128;                // one k-block of a window's x rows
+  static constexpr int QT = 64 * 64;                 // the k and v tiles
+  static constexpr int W = 0;                        // per k-block the head's 96 rows of wqkv
+  static constexpr int WG0 = W + KB * 96 * 128;      // per warpgroup its x slots, k and v tiles
+  static constexpr int WGB = XS * XT + 2 * QT;
+  // barriers: the weights', then per warpgroup full[XS], empty[XS]
+  static constexpr int BAR = WG0 + WGN * WGB;
+  static constexpr int SMEM = BAR + (1 + 2 * WGN * XS) * 8 + 1024;   // + aligning the base
+  static_assert(C % 64 == 0 && XS >= 3 && WGN * 2 < 16, "k-blocks, ring, named barriers");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// Phase 1 of the attention half-block, the body of a kernel launched on
+// HEADS x chunks blocks of HeadPlan<C>::THREADS threads with HeadPlan<C>::SMEM
+// bytes of dynamic shared memory (attn_block.cu, and swin_block.cu at C = 768):
+// block b takes head b % HEADS and chunk b / HEADS of the windows; the head's
+// 96 q | k | v rows of wqkv stay in shared memory while each warpgroup walks
+// its own windows, their x rows by TMA (tm_x: [bnw * 49, C], 64-row boxes)
+// through a ring of its own; q | k | v on wgmma, q kept in registers as the A
+// fragments of q k^T, attention on mma.sync (attend_q); the head's 32
+// columns of the attention output, rounded once, go to ao [bnw * 49, C].
+template <int C>
+__device__ __forceinline__ void attend_heads(const CUtensorMap& tm_x, const CUtensorMap& tm_qkv,
+                                             const float* __restrict__ bqkv,
+                                             const bf16* __restrict__ bias,
+                                             const int* __restrict__ region,
+                                             bf16* __restrict__ ao, int bnw, int nw) {
+  using P = HeadPlan<C>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  const int h = blockIdx.x % P::HEADS, chunks = gridDim.x / P::HEADS, ch = blockIdx.x / P::HEADS;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32, wq = warp % 4;
+  const int lane = threadIdx.x % 32;
+  const int er = 16 * wq + lane / 4, ec = 2 * (lane % 4);    // accumulator row and column
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + P::BAR);
+  uint64_t* full = wbar + 1 + wg * 2 * P::XS;
+  uint64_t* empty = full + P::XS;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(wbar, 1);
+    for (int i = 0; i < P::WGN * 2 * P::XS; ++i)     // full: the TMA; empty: a warpgroup's warps
+      sm90::mbar_init(wbar + 1 + i, i % (2 * P::XS) < P::XS ? 1 : 4);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(wbar, P::KB * 96 * 128);
+    for (int kb = 0; kb < P::KB; ++kb)
+      for (int j = 0; j < 3; ++j)
+        sm90::tma_load_2d(base + P::W + (kb * 3 + j) * HD * 128, &tm_qkv, kb * 64,
+                          j * C + h * HD, wbar);
+  }
+
+  // this warpgroup's windows: first, first + stride, ...; use v of its ring
+  // is k-block v % KB of its window v / KB
+  const int stride = chunks * P::WGN, first = ch + chunks * wg;
+  const int uses = first < bnw ? ((bnw - 1 - first) / stride + 1) * P::KB : 0;
+  const uint32_t xs = base + P::WG0 + wg * P::WGB;
+  unsigned char* tk = smem + P::WG0 + wg * P::WGB + P::XS * P::XT;
+  unsigned char* tv = tk + P::QT;
+  const bool issuer = threadIdx.x % 128 == 0;
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto && issued < uses; ++issued) {
+      const int s = issued % P::XS;
+      sm90::mbar_wait(empty + s, ((issued / P::XS) & 1) ^ 1);
+      sm90::mbar_expect_tx(full + s, P::XT);
+      sm90::tma_load_2d(xs + s * P::XT, &tm_x, (issued % P::KB) * 64,
+                        (first + stride * (issued / P::KB)) * N, full + s);
+    }
+  };
+  if (issuer) issue_upto(P::XS - 1);
+  RingReader<P::XS, P::XT> ring{full, empty, xs};
+
+  // the head's bias and this thread's bqkv, in registers for every window
+  uint32_t bz[7][2];
+  head_bias(bias + static_cast<size_t>(h) * N * N, wq, bz);
+  float2 bq[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int col = 8 * j + ec;
+    bq[j] = *reinterpret_cast<const float2*>(bqkv + (col / HD) * C + h * HD + col % HD);
+  }
+  const float scale = round_to<bf16>(QK_SCALE);
+  const uint64_t dw = sm90::sw128_desc(base + P::W);
+  auto sync_own = [wg] { sm90::named_barrier(1 + wg, 128); };
+  sm90::mbar_wait(wbar, 0);
+
+  for (int u0 = 0; u0 < uses; u0 += P::KB) {
+    const int w = first + stride * (u0 / P::KB);
+    uint32_t differ = 0;
+    if (region != nullptr) {
+      const int* rr = region + static_cast<size_t>(w % nw) * N;
+      differ = region_differ(wq, rr[lane], lane < N - 32 ? rr[32 + lane] : 0);
+    }
+    // q | k | v: [64, C] x [C, 96]
+    float acc[48];
+#pragma unroll
+    for (int z = 0; z < 48; ++z) acc[z] = 0.0f;
+#pragma unroll 1
+    for (int kb = 0; kb < P::KB; ++kb) {
+      const uint64_t da = sm90::sw128_desc(ring.acquire(issue_upto, issuer));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 64; k += 16)
+        sm90::wgmma_ss(acc, sm90::desc_add(da, k * 2),
+                       sm90::desc_add(dw, kb * 96 * 128 + k * 2), kb > 0 || k > 0);
+      ring.retire();
+    }
+    ring.drain();
+    sm90::fence_regs(acc);
+    // + bqkv, rounded; q * scale rounded, as the A fragments of q k^T; k and
+    // v into their tiles; rows past the window zero
+    uint32_t qa[2][4];
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = er + 8 * hi, d = (8 * j + ec) % HD;
+        const float v0 = round_to<bf16>(acc[4 * j + 2 * hi] + bq[j].x);
+        const float v1 = round_to<bf16>(acc[4 * j + 2 * hi + 1] + bq[j].y);
+        if (j < 4)
+          qa[j / 2][(j % 2) * 2 + hi] = row < N ? pack_bf16(v0 * scale, v1 * scale) : 0u;
+        else
+          *reinterpret_cast<uint32_t*>((j < 8 ? tk : tv) + sm90::sw64_offset(row, d)) =
+              row < N ? pack_bf16(v0, v1) : 0u;
+      }
+    sync_own();                         // k and v are whole
+    float o[4][4];
+    attend_q(qa, tk, tv, 0, bz, differ, o);
+    // the head's columns of the attention output, rounded once
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = er + 8 * hi;
+        if (row < N)
+          *reinterpret_cast<uint32_t*>(ao + (static_cast<size_t>(w) * N + row) * C + h * HD +
+                                       8 * nt + ec) = pack_bf16(o[nt][2 * hi], o[nt][2 * hi + 1]);
+      }
+    sync_own();                         // every warp is done with k and v
+  }
+}
+
 
 }  // namespace swin

@@ -103,19 +103,14 @@ def tiled_geometry(bnw: int, g: int, sms: int) -> Geometry:
 
 
 @dataclass(frozen=True)
-class TwoPhaseGeometry:
-    """The two bf16 launches: phase 1 runs `heads` x `chunks` blocks (block
-    b takes head b % heads and chunk b // heads) of `warpgroups` warpgroups,
-    each walking its own windows; phase 2 runs `proj_blocks` persistent
-    blocks over `row_tiles` tiles of ROW_TILE rows in groups of
-    `tiles_per_group` (block b takes groups b, b + proj_blocks, ...)."""
+class HeadGeometry:
+    """The bf16 phase-1 launch (csrc/swin_tiled.cuh::attend_heads): `heads` x
+    `chunks` blocks (block b takes head b % heads and chunk b // heads) of
+    `warpgroups` warpgroups, each walking its own windows."""
     bnw: int
     heads: int
     chunks: int
     warpgroups: int
-    row_tiles: int
-    tiles_per_group: int
-    proj_blocks: int
 
     @property
     def blocks(self) -> int:
@@ -130,6 +125,25 @@ class TwoPhaseGeometry:
     def rounds(self) -> int:
         """The most windows a phase-1 warpgroup walks."""
         return -(-self.bnw // (self.chunks * self.warpgroups))
+
+
+def head_geometry(bnw: int, c: int, sms: int) -> dict:
+    """HeadGeometry's fields for bnw windows of width c on `sms`
+    multiprocessors: as many chunks as there are multiprocessors a head."""
+    heads = c // KERNEL_HEAD_DIM
+    return dict(bnw=bnw, heads=heads, chunks=max(1, sms // heads),
+                warpgroups=HEAD_SHAPES[c][0])
+
+
+@dataclass(frozen=True)
+class TwoPhaseGeometry(HeadGeometry):
+    """The two bf16 launches: phase 1 as HeadGeometry; phase 2 runs
+    `proj_blocks` persistent blocks over `row_tiles` tiles of ROW_TILE rows
+    in groups of `tiles_per_group` (block b takes groups b, b + proj_blocks,
+    ...)."""
+    row_tiles: int
+    tiles_per_group: int
+    proj_blocks: int
 
     def tiles(self, block: int) -> List[range]:
         """The groups of row tiles phase-2 block `block` takes, in its order."""
@@ -148,11 +162,9 @@ def kernel_geometry(bnw: int, c: int, sms: int):
         raise ValueError(f'kernel_geometry: bnw={bnw}, c={c}, sms={sms}')
     if c in TILED_WINDOWS:
         return tiled_geometry(bnw, TILED_WINDOWS[c], sms)
-    heads = c // KERNEL_HEAD_DIM
     row_tiles = -(-bnw * KERNEL_TOKENS // ROW_TILE)
     per_group = PROJ_SHAPES[c][0]
-    return TwoPhaseGeometry(bnw=bnw, heads=heads, chunks=max(1, sms // heads),
-                            warpgroups=HEAD_SHAPES[c][0], row_tiles=row_tiles,
+    return TwoPhaseGeometry(**head_geometry(bnw, c, sms), row_tiles=row_tiles,
                             tiles_per_group=per_group,
                             proj_blocks=min(-(-row_tiles // per_group), sms))
 

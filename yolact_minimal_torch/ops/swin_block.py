@@ -10,9 +10,12 @@ attended to; the caller crops its output row.
 
 `swin_block` launches the hand-written CUDA kernel (`csrc/swin_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `swin_block_plain`,
-for tensors on the CPU. It counts its kernel launches in
-`swin_block.launches`. `kernel_geometry` fixes the bf16 launch's grid (tiles
-of windows at C = 96, 192 and 384, one block a window at C = 768).
+for tensors on the CPU. It counts its calls that launch the kernels in
+`swin_block.launches` (one a call, whatever the launches in it).
+`kernel_geometry` fixes the bf16 launches' grids: at C = 96, 192 and 384 one
+launch over tiles of windows; at C = 768 six over the rows taken as one flat
+[B*nW*N, C] matrix (LayerNorm1, the attention, proj, LayerNorm2, fc1, fc2),
+passing what lies between them through a scratch buffer.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm1 in float32 (eps 1e-5), times the rowmask,
@@ -28,16 +31,18 @@ keeps them.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from yolact_minimal_torch.ops import _build
-from yolact_minimal_torch.ops.attn_block import (Geometry, check_kernel_shape, check_params,
-                                                 check_per_window, check_windows,
-                                                 tiled_geometry)
+from yolact_minimal_torch.ops import attn_block as attn_ops
+from yolact_minimal_torch.ops.attn_block import (Geometry, HeadGeometry, check_kernel_shape,
+                                                 check_params, check_per_window, check_windows,
+                                                 head_geometry, tiled_geometry)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS
 from yolact_minimal_torch.ops.window_attention import _sm_count, window_attention_plain
 
@@ -45,20 +50,30 @@ from yolact_minimal_torch.ops.window_attention import _sm_count, window_attentio
 # compiles it (`kernel_attributes` reports it from the compiled kernel): G
 # windows a tile, CS warpgroups a window (each takes 1 / CS of every
 # product's columns), ring slots, and the 64-wide k-blocks that one use of
-# the ring carries for the qkv and for the fc1 product. At C = 768 the bf16
-# body is one block a window, which keeps the float32 h in a scratch tensor
-# that the wrapper allocates.
+# the ring carries for the qkv and for the fc1 product.
 KERNEL_SHAPES = {96: (3, 1, 3, 2, 2), 192: (2, 1, 4, 1, 3), 384: (1, 2, 4, 2, 3)}
-SCRATCH_WIDTHS = (768,)
 TOKENS = 49
 WEIGHT_BOX_ROWS = (32, 96, 64, 96)    # TMA boxes of wqkv, wproj, k1, k2 (at most 256)
+# The flat form's widths (C = 768): its bf16 launches, in order, pass the
+# rows between them through a scratch buffer (`scratch_bytes`). The two
+# LayerNorms take LN_ROWS rows a block, one a warp; the attention is
+# attn_block's phase 1 (attn_ops.HEAD_SHAPES); each product of
+# GEMM_LAUNCHES runs tiles of GEMM_ROWS rows by GEMM_SHAPES[launch] =
+# (columns, ring slots, blocks a multiprocessor) on persistent blocks of 256
+# threads, each slot a 64-wide k-block of both operands.
+SCRATCH_WIDTHS = (768,)
+FLAT_LAUNCHES = ('ln1', 'heads', 'proj', 'ln2', 'fc1', 'fc2')
+GEMM_LAUNCHES = ('proj', 'fc1', 'fc2')
+GEMM_ROWS = 128
+GEMM_SHAPES = {'proj': (192, 4, 1), 'fc1': (128, 3, 2), 'fc2': (192, 4, 1)}
+LN_ROWS = 8
 
 
 def _align1k(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def shared_bytes(c: int) -> int:
+def shared_bytes(c: int):
     """Dynamic shared memory of a tiled bf16 block at width c, as
     BlockPlan<C> lays it out: per window the LN tile [64, C], the
     attention-output tile and one set of q, k, v tiles (two where CS > 1)
@@ -66,7 +81,11 @@ def shared_bytes(c: int) -> int:
     [64, 64]; then the ring, whose slots hold the largest use (KQ k-blocks of
     a head's 96 q | k | v rows, K1 of a chunk's 64 k1 rows, or one of CS x 96
     proj or k2 rows), its barriers (in the first window's unused tail where
-    they fit) and 1 KB to align the base."""
+    they fit) and 1 KB to align the base. C = 768: one value for each of
+    FLAT_LAUNCHES (0 for the LayerNorms, which take none)."""
+    if c in SCRATCH_WIDTHS:
+        return (0, attn_ops.shared_bytes(c)[0], gemm_shared_bytes('proj'), 0,
+                gemm_shared_bytes('fc1'), gemm_shared_bytes('fc2'))
     g, cs, stages, kq, k1 = KERNEL_SHAPES[c]
     tile = -(-c // 64) * 64 * 128
     qkv_sets = 2 if cs > 1 else 1
@@ -78,17 +97,76 @@ def shared_bytes(c: int) -> int:
     return g * window + stages * slot + (0 if tail else barriers) + 1024
 
 
+def scratch_bytes(bnw: int, c: int) -> int:
+    """The flat form's scratch for bnw windows of width c: the hidden
+    activations [rows, 4C] bf16, h [rows, C] float32, the attention output
+    and the LayerNorm rows [rows, C] bf16 each (csrc/swin_block.cu,
+    FlatScratch)."""
+    return bnw * TOKENS * c * (8 + 4 + 2 + 2)
+
+
+def gemm_shape(launch: str, c: int) -> Tuple[int, int]:
+    """(K, N) of one of the flat form's products: A [rows, K] times B^T,
+    B [N, K]."""
+    return {'proj': (c, c), 'fc1': (c, 4 * c), 'fc2': (4 * c, c)}[launch]
+
+
+def gemm_shared_bytes(launch: str) -> int:
+    """A product block's ring: per slot the A rows [GEMM_ROWS, 64] and the B
+    rows [columns, 64], 128 bytes a row; its barriers and 1 KB to align the
+    base."""
+    cols, stages, _ = GEMM_SHAPES[launch]
+    return stages * (GEMM_ROWS + cols) * 128 + 2 * stages * 8 + 1024
+
+
+@dataclass(frozen=True)
+class FlatGeometry(HeadGeometry):
+    """The flat form's six bf16 launches for bnw windows (C = 768): LN1 and
+    LN2 on `ln_blocks` blocks of LN_ROWS rows; the attention as HeadGeometry
+    (attn_block's phase 1); each product of GEMM_LAUNCHES on
+    `gemm_blocks[i]` persistent blocks over `row_tiles` x `col_tiles[i]`
+    tiles of GEMM_ROWS rows by its GEMM_SHAPES columns, tile t being row tile
+    t // col_tiles[i] and column tile t % col_tiles[i]; block b takes tiles
+    b, b + gemm_blocks[i], ..."""
+    rows: int
+    ln_blocks: int
+    row_tiles: int
+    col_tiles: Tuple[int, int, int]
+    gemm_blocks: Tuple[int, int, int]
+
+    def tiles(self, launch: str, block: int) -> List[Tuple[int, int]]:
+        """The (row tile, column tile) pairs block `block` of a product walks,
+        in its order."""
+        i = GEMM_LAUNCHES.index(launch)
+        n = self.col_tiles[i]
+        return [divmod(t, n) for t in range(block, self.row_tiles * n, self.gemm_blocks[i])]
+
+    def gemm_rounds(self, launch: str) -> int:
+        """The most tiles a block of a product walks."""
+        i = GEMM_LAUNCHES.index(launch)
+        return -(-self.row_tiles * self.col_tiles[i] // self.gemm_blocks[i])
+
+
 @lru_cache(maxsize=64)
-def kernel_geometry(bnw: int, c: int, sms: int) -> Geometry:
-    """The bf16 kernel's launch for bnw windows of width c on a card of `sms`
-    multiprocessors. Tiled widths: tiles of G windows, one block a
-    multiprocessor (each takes most of one's shared memory), or one a tile
-    where there are fewer tiles. C = 768: one block a window."""
+def kernel_geometry(bnw: int, c: int, sms: int):
+    """The bf16 launches for bnw windows of width c on a card of `sms`
+    multiprocessors, as csrc/swin_block.cu computes them. Tiled widths: a
+    Geometry of tiles of G windows, one block a multiprocessor (each takes
+    most of one's shared memory), or one a tile where there are fewer tiles.
+    C = 768: a FlatGeometry, each product on its GEMM_SHAPES blocks a
+    multiprocessor, or one a tile where there are fewer."""
     if bnw <= 0 or c not in (96, 192, 384, 768) or sms <= 0:
         raise ValueError(f'kernel_geometry: bnw={bnw}, c={c}, sms={sms}')
-    if c not in KERNEL_SHAPES:
-        return Geometry(bnw=bnw, windows_per_tile=1, tiles=bnw, blocks=bnw, rounds=1)
-    return tiled_geometry(bnw, KERNEL_SHAPES[c][0], sms)
+    if c in KERNEL_SHAPES:
+        return tiled_geometry(bnw, KERNEL_SHAPES[c][0], sms)
+    rows = bnw * TOKENS
+    row_tiles = -(-rows // GEMM_ROWS)
+    col_tiles = tuple(gemm_shape(k, c)[1] // GEMM_SHAPES[k][0] for k in GEMM_LAUNCHES)
+    per_sm = tuple(GEMM_SHAPES[k][2] for k in GEMM_LAUNCHES)
+    return FlatGeometry(**head_geometry(bnw, c, sms), rows=rows,
+                        ln_blocks=-(-rows // LN_ROWS), row_tiles=row_tiles, col_tiles=col_tiles,
+                        gemm_blocks=tuple(min(row_tiles * n, k * sms)
+                                          for n, k in zip(col_tiles, per_sm)))
 
 
 def swin_block_plain(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bqkv,
@@ -164,10 +242,10 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
     is_bf16 = x.dtype == torch.bfloat16
     bnw, _, c = x.shape
     scratch, blocks = None, 0
-    if is_bf16:
+    if is_bf16 and c in SCRATCH_WIDTHS:
+        scratch = torch.empty(scratch_bytes(bnw, c), dtype=torch.uint8, device=x.device)
+    elif is_bf16:
         blocks = kernel_geometry(bnw, c, _sm_count(x.device.index or 0)).blocks
-        if c in SCRATCH_WIDTHS:
-            scratch = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     nw = rowmask.shape[0] if rowmask is not None else \
         region.shape[0] if region is not None else 0
     lib = _build.load('swin_block')
@@ -193,15 +271,27 @@ ATTRIBUTE_KEYS = ('windows_per_tile', 'column_split', 'threads', 'stages', 'smem
 
 
 def kernel_attributes(c: int) -> dict:
-    """The compiled tiled bf16 kernel's shape at width c (KERNEL_SHAPES):
+    """The compiled bf16 kernels at width c. Tiled widths (KERNEL_SHAPES):
     windows a tile, warpgroups a window, threads, ring slots and dynamic
     shared memory bytes a block, and the registers and local (spill) bytes a
-    thread."""
+    thread. C = 768: for each of FLAT_LAUNCHES the threads and dynamic shared
+    memory bytes a block and the registers and local bytes a thread."""
+    lib = _build.load('swin_block')
+    if c in SCRATCH_WIDTHS:
+        fn = lib.swin_block_flat_attributes
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        attrs = {}
+        for which, name in enumerate(FLAT_LAUNCHES):
+            out = (ctypes.c_int * len(attn_ops.ATTRIBUTE_KEYS))()
+            _build.launch(fn, which, ctypes.addressof(out))
+            attrs[name] = dict(zip(attn_ops.ATTRIBUTE_KEYS, out))
+        return attrs
     if c not in KERNEL_SHAPES:
-        raise ValueError(f'kernel_attributes: the tiled kernel takes C in '
-                         f'{tuple(KERNEL_SHAPES)}, got {c}')
+        raise ValueError(f'kernel_attributes: the kernels take C in '
+                         f'{tuple(KERNEL_SHAPES) + SCRATCH_WIDTHS}, got {c}')
     out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
-    fn = _build.load('swin_block').swin_block_attributes
+    fn = lib.swin_block_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.launch(fn, c, ctypes.addressof(out))
