@@ -912,8 +912,8 @@ def check_swin_block(dev, attention, mlp):
     import torch
     from yolact_minimal_torch.ops.swin_block import (GEMM_LAUNCHES, GEMM_ROWS, GEMM_SHAPES,
                                                      KERNEL_SHAPES, kernel_attributes,
-                                                     kernel_geometry, swin_block,
-                                                     swin_block_plain)
+                                                     kernel_geometry, launch_shapes,
+                                                     swin_block, swin_block_plain)
     g = torch.Generator(device=dev).manual_seed(6)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_stage = []
@@ -970,17 +970,22 @@ def check_swin_block(dev, attention, mlp):
               f'{SWIN_F32_REL_TOL:.3g}); two bf16 launches bit-equal')
         geo = kernel_geometry(bnw, c, sms)
         attrs = kernel_attributes(c)
+        shapes = {k: a['shape'] for k, a in attrs.items()}
+        _check(shapes == launch_shapes(c), f'swin_block C = {c}: the compiled tile shapes '
+               f'{shapes} are not the wrapper\'s {launch_shapes(c)}')
         if c in KERNEL_SHAPES:
+            a = attrs['tiled']
+            _, cs, stages = a['shape']
             geometry = dict(grid=geo.blocks, tiles=geo.tiles,
                             windows_per_tile=geo.windows_per_tile, rounds=geo.rounds,
-                            waves=geo.tiles / geo.blocks, sms=sms)
-            geometry.update({k: v for k, v in attrs.items() if k != 'windows_per_tile'})
-            print(f'  geometry: tiled, grid {geo.blocks} blocks of {attrs["threads"]} threads on '
+                            waves=geo.tiles / geo.blocks, sms=sms, column_split=cs,
+                            stages=stages, **{k: v for k, v in a.items() if k != 'shape'})
+            print(f'  geometry: tiled, grid {geo.blocks} blocks of {a["threads"]} threads on '
                   f'{sms} SMs for {geo.tiles} tiles of G = {geo.windows_per_tile} windows '
-                  f'({attrs["column_split"]} warpgroups a window; {geo.rounds} rounds, '
+                  f'({cs} warpgroups a window; {geo.rounds} rounds, '
                   f'{geo.tiles / geo.blocks:.2f} tiles a block), '
-                  f'{attrs["stages"]} ring slots, {attrs["smem_bytes"]} B dynamic shared memory, '
-                  f'{attrs["registers"]} registers, {attrs["spill_bytes"]} B local (spill) a '
+                  f'{stages} ring slots, {a["smem_bytes"]} B dynamic shared memory, '
+                  f'{a["registers"]} registers, {a["spill_bytes"]} B local (spill) a '
                   f'thread')
         else:
             launch_ms = _flat_launch_device_ms(lambda: swin_block(*args))

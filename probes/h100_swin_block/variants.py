@@ -8,7 +8,8 @@ device time is taken under torch.profiler (20 calls), the list forward and
 then backward. Exits 1 if a copy that computes the block differs by more
 than 2^-7.
 
-Copies (edits of the source's text): fc1_one (fc1 as proj and fc2: 192
+Copies (edits of the source's text, with the wrapper's copy of the
+product shapes set to match, so that it passes the copy's grids): fc1_one (fc1 as proj and fc2: 192
 columns, 4 ring slots, one block a multiprocessor), fc1_192x3 (fc1 at 192
 columns and 3 slots, one block), slots5 (proj and fc2 with 5 ring slots),
 erf_as (gelu's erf as the JAX kernel's Abramowitz & Stegun 7.1.26 form,
@@ -21,6 +22,7 @@ python3 probes/h100_swin_block/variants.py"""
 import ctypes
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -29,6 +31,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs                                          # noqa: E402
 from yolact_minimal_torch.ops import _build                      # noqa: E402
+from yolact_minimal_torch.ops import swin_block as swin_ops      # noqa: E402
 from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain   # noqa: E402
 
 FC1 = 'template <> struct GemmShape<FLAT_C, 4 * FLAT_C> : GemmShapeOf<128, 3, 2> {};'
@@ -44,6 +47,11 @@ ERF_AS = '''__device__ __forceinline__ float gelu_as(float v) {
 }
 '''
 DIAGNOSTICS = ('nogelu', 'nostore')
+# The wrapper's copy of each copy's product shapes (ops/swin_block.py::
+# GEMM_SHAPES), from which it computes the grids it passes.
+BASE_SHAPES = dict(swin_ops.GEMM_SHAPES)
+SHAPES = {'fc1_one': {'fc1': (192, 4, 1)}, 'fc1_192x3': {'fc1': (192, 3, 1)},
+          'slots5': {'proj': (192, 5, 1), 'fc2': (192, 5, 1)}}
 
 
 def variants(src):
@@ -63,10 +71,10 @@ def variants(src):
     }
 
 
-def main():
+def build(out):
+    """Each copy's source, the headers beside it, and its library, in `out`;
+    the libraries, loaded."""
     csrc = ROOT / 'yolact_minimal_torch' / 'csrc'
-    out = Path('/tmp/swin_block_variants')
-    out.mkdir(exist_ok=True)
     for h in csrc.glob('*.cuh'):
         (out / h.name).write_text(h.read_text())
     procs = {}
@@ -81,6 +89,12 @@ def main():
         if proc.returncode:
             raise SystemExit(f'nvcc failed for {name}:\n{log}')
         libs[name] = ctypes.CDLL(str(out / f'{name}.so'))
+    return libs
+
+
+def main():
+    with tempfile.TemporaryDirectory(prefix='swin_block_variants_') as tmp:
+        libs = build(Path(tmp))
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device('cuda')
@@ -95,6 +109,12 @@ def main():
     bad = []
     for name in list(libs) + list(libs)[::-1]:
         _build._loaded['swin_block'] = libs[name]
+        swin_ops.GEMM_SHAPES = {**BASE_SHAPES, **SHAPES.get(name, {})}
+        swin_ops.kernel_geometry.cache_clear()
+        compiled = {k: a['shape'] for k, a in swin_ops.kernel_attributes(c).items()}
+        if compiled != swin_ops.launch_shapes(c):
+            raise SystemExit(f'{name}: compiled shapes {compiled}, the wrapper\'s '
+                             f'{swin_ops.launch_shapes(c)}')
         got = swin_block(*args)
         torch.cuda.synchronize()
         _, rel = cs._rel_err(got, ref)

@@ -13,8 +13,8 @@ from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
-from yolact_minimal_torch.ops.swin_block import (FLAT_LAUNCHES, KERNEL_SHAPES,
-                                                 kernel_attributes, shared_bytes, swin_block,
+from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
+                                                 launch_shapes, shared_bytes, swin_block,
                                                  swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
 from yolact_minimal_torch.ops.window_attention import (window_attention,
@@ -464,20 +464,20 @@ def test_swin_block_kernel_is_deterministic(card, c):
 
 @pytest.mark.parametrize('c', [96, 192, 384, 768])
 def test_swin_block_kernel_is_built_as_the_geometry_assumes(card, c):
+    # each launch's tile shape as the wrapper's copy states it, its threads,
+    # its shared memory as shared_bytes lays it out, its registers
     attrs = kernel_attributes(c)
-    if c not in KERNEL_SHAPES:      # the flat form: each launch as its plan states
-        sizes = shared_bytes(c)
-        threads = (256, 128 * attn_block_ops.HEAD_SHAPES[c][0], 256, 256, 256, 256)
-        assert list(attrs) == list(FLAT_LAUNCHES) and len(sizes) == len(threads) == 6
-        for a, smem, n in zip(attrs.values(), sizes, threads):
-            assert a['threads'] == n and a['smem_bytes'] == smem <= 232448
-            assert 0 < a['registers'] * a['threads'] <= 65536
-        return
-    g, cs, stages = KERNEL_SHAPES[c][:3]
-    assert (attrs['windows_per_tile'], attrs['column_split'], attrs['stages']) == (g, cs, stages)
-    assert attrs['threads'] == 128 * g * cs
-    assert attrs['smem_bytes'] == shared_bytes(c) <= 232448
-    assert 0 < attrs['registers'] * attrs['threads'] <= 65536
+    shapes = launch_shapes(c)
+    assert list(attrs) == list(shapes) and len(shared_bytes(c)) == len(shapes)
+    for (name, a), smem in zip(attrs.items(), shared_bytes(c)):
+        shape = shapes[name]
+        assert a['shape'] == shape
+        # a warpgroup a window (times the warpgroups that split it) or a
+        # head's warpgroup; the LayerNorms and products 256
+        threads = 128 * shape[0] * shape[1] if name == 'tiled' else \
+            128 * shape[0] if name == 'heads' else 256
+        assert a['threads'] == threads and a['smem_bytes'] == smem <= 232448
+        assert 0 < a['registers'] * a['threads'] <= 65536
 
 
 @pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0]),

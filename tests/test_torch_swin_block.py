@@ -8,12 +8,14 @@ import torch
 
 from yolact_minimal_tpu.models import swin as jax_swin
 from yolact_minimal_tpu.ops.swin_block import _block_xla, swin_block_fused
-from yolact_minimal_torch.ops.attn_block import SHARED_MEMORY_LIMIT, attn_block_plain
+from yolact_minimal_torch.ops.attn_block import (HEAD_SHAPES, SHARED_MEMORY_LIMIT,
+                                                 attn_block_plain)
 from yolact_minimal_torch.ops.swin_block import (FLAT_LAUNCHES, GEMM_LAUNCHES, GEMM_ROWS,
                                                  GEMM_SHAPES, KERNEL_SHAPES, LN_ROWS,
                                                  SCRATCH_WIDTHS, WEIGHT_BOX_ROWS, FlatGeometry,
-                                                 gemm_shape, kernel_geometry, scratch_bytes,
-                                                 shared_bytes, swin_block, swin_block_plain)
+                                                 gemm_shape, kernel_geometry, launch_shapes,
+                                                 scratch_bytes, shared_bytes, swin_block,
+                                                 swin_block_plain)
 from yolact_minimal_torch.ops.swin_mlp import mlp_block_plain
 
 torch.set_num_threads(1)
@@ -160,7 +162,8 @@ GEOMETRY_BNW = [1, 2, 3, 4, 5, 131, 132, 133, 264, 265, 395, 397, 144, 400, 1600
 def _check_flat_walks(geo, bnw, c, sms):
     """C = 768: the attention walks every window once for each head; each
     product walks every (row tile, column tile) of the flat rows once, on
-    persistent blocks; the LayerNorms' blocks cover the rows."""
+    persistent blocks; the LayerNorms' warps walk every row once; the grids
+    the wrapper passes are these, in the range the kernel accepts."""
     assert isinstance(geo, FlatGeometry) and geo.rows == 49 * bnw
     assert geo.heads == c // 32 and geo.blocks == geo.heads * geo.chunks
     for head in range(geo.heads):
@@ -169,6 +172,11 @@ def _check_flat_walks(geo, bnw, c, sms):
         assert sorted(w for walk in walks for w in walk) == list(range(bnw))
         assert geo.rounds == max(len(walk) for walk in walks)
     assert (geo.ln_blocks - 1) * LN_ROWS < geo.rows <= geo.ln_blocks * LN_ROWS
+    ln_walks = [range(b * LN_ROWS + w, geo.rows, geo.ln_blocks * LN_ROWS)
+                for b in range(geo.ln_blocks) for w in range(LN_ROWS)]
+    assert sorted(r for walk in ln_walks for r in walk) == list(range(geo.rows))
+    assert geo.grids == (geo.ln_blocks, geo.blocks, geo.gemm_blocks[0], geo.ln_blocks,
+                         geo.gemm_blocks[1], geo.gemm_blocks[2])
     assert (geo.row_tiles - 1) * GEMM_ROWS < geo.rows <= geo.row_tiles * GEMM_ROWS
     for i, launch in enumerate(GEMM_LAUNCHES):
         width, _, per_sm = GEMM_SHAPES[launch]
@@ -223,7 +231,8 @@ def test_kernel_shape_respects_its_limits(c):
     window = max(2 * tile + (2 if cs > 1 else 1) * 3 * 64 * 64, 49 * c * 4 + tile) + \
         (64 * 128 if cs > 1 else 0)
     slot = max(96 * kq, 64 * k1, 96 * cs) * 128
-    assert g * window + stages * slot < shared_bytes(c) <= SHARED_MEMORY_LIMIT
+    (size,) = shared_bytes(c)
+    assert g * window + stages * slot < size <= SHARED_MEMORY_LIMIT
 
 
 def test_flat_form_respects_its_limits():
@@ -251,6 +260,28 @@ def test_flat_form_respects_its_limits():
         assert per_sm * (sizes[launch] + 1024) <= 233472
     rows = 144 * 49
     assert scratch_bytes(144, c) == rows * 4 * c * 2 + rows * c * 4 + 2 * rows * c * 2
+
+
+@pytest.mark.parametrize('c', [96, 192, 384, 768])
+def test_launch_shapes_name_each_launch(c):
+    """One entry a launch, in the order they run, at every width: the tiled
+    kernel's (G, CS, ring slots), or the flat form's six, each as the module's
+    constants state it; shared_bytes gives one size for each."""
+    shapes = launch_shapes(c)
+    assert len(shared_bytes(c)) == len(shapes)
+    if c in KERNEL_SHAPES:
+        assert shapes == {'tiled': KERNEL_SHAPES[c][:3]}
+        return
+    assert tuple(shapes) == FLAT_LAUNCHES
+    assert shapes['ln1'] == shapes['ln2'] == (LN_ROWS,)
+    assert shapes['heads'] == HEAD_SHAPES[c]
+    for launch in GEMM_LAUNCHES:
+        assert shapes[launch] == (GEMM_ROWS,) + GEMM_SHAPES[launch]
+
+
+def test_launch_shapes_rejects_other_widths():
+    with pytest.raises(ValueError, match='launch_shapes'):
+        launch_shapes(64)
 
 
 def test_kernel_geometry_rejects_bad_arguments():

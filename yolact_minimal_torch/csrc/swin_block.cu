@@ -111,7 +111,11 @@
 //     proj, fc2  256      1 a multiprocessor   BN 192, 4 slots: 164928 B
 //     fc1        256      2 a multiprocessor   BN 128, 3 slots:  99376 B
 //   fc1 runs two blocks a multiprocessor so that gelu's erff in one block's
-//   epilogue runs under the other's products.
+//   epilogue runs under the other's products. The grids are the caller's
+//   (ops/swin_block.py::kernel_geometry, passed in `grids`); each launch
+//   walks its rows, windows or tiles with its grid as the stride, so any
+//   grid in range covers them all. The tile shapes are compiled here, and
+//   swin_block_attributes reports them for the caller to hold its copy to.
 // - What bounds it (stage 3, [144, 49, 768], NVIDIA H100 80GB HBM3 at 700 W;
 //   chip_smoke.py phase 3 and probes/h100_swin_block/variants.py, PERF.md):
 //   0.34-0.37 ms device against the window body's 2.09 and the bound's
@@ -127,6 +131,8 @@
 // float32: one block of 256 threads a window on the CUDA cores, sums in index
 // order, no TF32, so that a float32 run on the card can be held to a CPU run;
 // `out` doubles as the scratch for the attention output and for h.
+#include <initializer_list>
+
 #include "sm90.cuh"
 #include "swin_common.cuh"
 #include "swin_tiled.cuh"
@@ -622,8 +628,9 @@ constexpr int LN_ROWS = 8;              // rows a LayerNorm block, one a warp
 // mean square of the differences, as layer_norm_row, summed in another
 // order), times the rowmask of the row's token where rowmask is not null
 // (row r is token r % 49 of window r / 49, which uses row (r / 49) % nw of
-// rowmask), rounded to bf16 into dst. Lane l takes the 16-byte chunks l,
-// l + 32, ... of the row.
+// rowmask), rounded to bf16 into dst. Warp w of block b takes rows
+// LN_ROWS b + w, + LN_ROWS gridDim.x, ...; lane l the 16-byte chunks l,
+// l + 32, ... of each.
 template <typename TIn, int C>
 __device__ __forceinline__ void ln_rows(const TIn* __restrict__ src,
                                         const float* __restrict__ rowmask,
@@ -632,42 +639,44 @@ __device__ __forceinline__ void ln_rows(const TIn* __restrict__ src,
                                         int rows, int nw) {
   constexpr int E = 16 / sizeof(TIn), Q = C / (32 * E);
   static_assert(C % (32 * E) == 0, "whole chunks a lane");
-  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const TIn* s = src + static_cast<size_t>(row) * C;
-  float v[Q][E];
-  float sum = 0.0f;
+  const int lane = threadIdx.x % 32;
+  for (int row = blockIdx.x * LN_ROWS + threadIdx.x / 32; row < rows;
+       row += gridDim.x * LN_ROWS) {
+    const TIn* s = src + static_cast<size_t>(row) * C;
+    float v[Q][E];
+    float sum = 0.0f;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    load_run(s + (lane + 32 * q) * E, v[q]);
+    for (int q = 0; q < Q; ++q) {
+      load_run(s + (lane + 32 * q) * E, v[q]);
 #pragma unroll
-    for (int i = 0; i < E; ++i) sum += v[q][i];
-  }
-  const float mu = warp_sum(sum) / C;
-  float sq = 0.0f;
-#pragma unroll
-  for (int q = 0; q < Q; ++q)
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      v[q][i] -= mu;
-      sq += v[q][i] * v[q][i];
+      for (int i = 0; i < E; ++i) sum += v[q][i];
     }
-  const float inv = 1.0f / sqrtf(warp_sum(sq) / C + LN_EPS);
-  const float m =
-      rowmask == nullptr ? 1.0f : rowmask[static_cast<size_t>((row / N) % nw) * N + row % N];
+    const float mu = warp_sum(sum) / C;
+    float sq = 0.0f;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int c0 = (lane + 32 * q) * E;
-    uint32_t pk[E / 2];
+    for (int q = 0; q < Q; ++q)
 #pragma unroll
-    for (int i = 0; i < E; i += 2)
-      pk[i / 2] = pack_bf16((v[q][i] * inv * lns[c0 + i] + lnb[c0 + i]) * m,
-                            (v[q][i + 1] * inv * lns[c0 + i + 1] + lnb[c0 + i + 1]) * m);
-    bf16* d = dst + static_cast<size_t>(row) * C + c0;
-    if constexpr (E == 8)
-      *reinterpret_cast<uint4*>(d) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-    else
-      *reinterpret_cast<uint2*>(d) = make_uint2(pk[0], pk[1]);
+      for (int i = 0; i < E; ++i) {
+        v[q][i] -= mu;
+        sq += v[q][i] * v[q][i];
+      }
+    const float inv = 1.0f / sqrtf(warp_sum(sq) / C + LN_EPS);
+    const float m =
+        rowmask == nullptr ? 1.0f : rowmask[static_cast<size_t>((row / N) % nw) * N + row % N];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int c0 = (lane + 32 * q) * E;
+      uint32_t pk[E / 2];
+#pragma unroll
+      for (int i = 0; i < E; i += 2)
+        pk[i / 2] = pack_bf16((v[q][i] * inv * lns[c0 + i] + lnb[c0 + i]) * m,
+                              (v[q][i + 1] * inv * lns[c0 + i + 1] + lnb[c0 + i + 1]) * m);
+      bf16* d = dst + static_cast<size_t>(row) * C + c0;
+      if constexpr (E == 8)
+        *reinterpret_cast<uint4*>(d) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      else
+        *reinterpret_cast<uint2*>(d) = make_uint2(pk[0], pk[1]);
+    }
   }
 }
 
@@ -854,27 +863,38 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The grid of a product over `rows` rows: PER_SM blocks a multiprocessor, or
-// one a tile where there are fewer tiles (ops/swin_block.py::kernel_geometry).
+// The tiles of a product over `rows` rows.
 template <int K, int N>
-int gemm_grid(int rows, int sms) {
+int gemm_tiles(int rows) {
   using P = FlatGemm<K, N>;
-  const int tiles = (rows + P::BM - 1) / P::BM * P::NT;
-  return tiles < P::PER_SM * sms ? tiles : P::PER_SM * sms;
+  return (rows + P::BM - 1) / P::BM * P::NT;
 }
+
+// The six launches' grids, in the order they run (FLAT_LAUNCHES of
+// ops/swin_block.py): LN1, the attention, proj, LN2, fc1, fc2.
+enum FlatLaunch {
+  LN1_LAUNCH, HEADS_LAUNCH, PROJ_LAUNCH, LN2_LAUNCH, FC1_LAUNCH, FC2_LAUNCH, FLAT_LAUNCHES
+};
 
 int launch_flat(const void* x, const float* rowmask, const float* ln1s, const float* ln1b,
                 const void* wqkv, const float* bqkv, const void* bias, const int* region,
                 const void* wproj, const float* bproj, const float* ln2s, const float* ln2b,
                 const void* k1, const float* b1, const void* k2, const float* b2, void* scratch,
-                void* out, int bnw, int nw, cudaStream_t stream) {
+                void* out, int bnw, int nw, const int* grids, cudaStream_t stream) {
   constexpr int C = FLAT_C, H = 4 * C;
   using PH = HeadPlan<C>;
   using PP = ProjGemm;
   using P1 = Fc1Gemm;
   using P2 = Fc2Gemm;
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = bnw * N;
+  const int rows = bnw * N, ln_most = (rows + LN_ROWS - 1) / LN_ROWS;
+  const int in_range[FLAT_LAUNCHES][2] = {
+      {1, ln_most}, {PH::HEADS, 1 << 30}, {1, gemm_tiles<C, C>(rows)}, {1, ln_most},
+      {1, gemm_tiles<C, H>(rows)}, {1, gemm_tiles<H, C>(rows)}};
+  if (scratch == nullptr || grids == nullptr || grids[HEADS_LAUNCH] % PH::HEADS != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < FLAT_LAUNCHES; ++i)
+    if (grids[i] < in_range[i][0] || grids[i] > in_range[i][1])
+      return static_cast<int>(cudaErrorInvalidValue);
   const FlatScratch sc(rows);
   unsigned char* s = static_cast<unsigned char*>(scratch);
   bf16* u = reinterpret_cast<bf16*>(s + sc.u);
@@ -887,32 +907,27 @@ int launch_flat(const void* x, const float* rowmask, const float* ln1s, const fl
       !sm90::map_sw128(&tl, ln, C, rows, P1::BM) || !sm90::map_sw128(&t1, k1, C, H, P1::BN) ||
       !sm90::map_sw128(&tu, u, H, rows, P2::BM) || !sm90::map_sw128(&t2, k2, H, C, P2::BN))
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = allow_smem(swin_block_heads_kernel, PH::SMEM);
+  cudaError_t err = allow_smem(swin_block_heads_kernel, PH::SMEM);
   if (err == cudaSuccess) err = allow_smem(swin_block_proj_kernel, PP::SMEM);
   if (err == cudaSuccess) err = allow_smem(swin_block_fc1_kernel, P1::SMEM);
   if (err == cudaSuccess) err = allow_smem(swin_block_fc2_kernel, P2::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ln_grid = (rows + LN_ROWS - 1) / LN_ROWS;
-  const int chunks = sms / PH::HEADS > 1 ? sms / PH::HEADS : 1;
   const bf16* xb = static_cast<const bf16*>(x);
-  swin_block_ln1_kernel<<<ln_grid, LN_ROWS * 32, 0, stream>>>(xb, rowmask, ln1s, ln1b, ln, rows,
-                                                                nw);
+  swin_block_ln1_kernel<<<grids[LN1_LAUNCH], LN_ROWS * 32, 0, stream>>>(xb, rowmask, ln1s, ln1b,
+                                                                          ln, rows, nw);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  swin_block_heads_kernel<<<PH::HEADS * chunks, PH::THREADS, PH::SMEM, stream>>>(
+  swin_block_heads_kernel<<<grids[HEADS_LAUNCH], PH::THREADS, PH::SMEM, stream>>>(
       tx, tq, bqkv, static_cast<const bf16*>(bias), region, ao, bnw, nw);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  swin_block_proj_kernel<<<gemm_grid<C, C>(rows, sms), PP::THREADS, PP::SMEM, stream>>>(
-      ta, tp, xb, bproj, h, rows);
+  swin_block_proj_kernel<<<grids[PROJ_LAUNCH], PP::THREADS, PP::SMEM, stream>>>(ta, tp, xb,
+                                                                               bproj, h, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  swin_block_ln2_kernel<<<ln_grid, LN_ROWS * 32, 0, stream>>>(h, ln2s, ln2b, ln, rows);
+  swin_block_ln2_kernel<<<grids[LN2_LAUNCH], LN_ROWS * 32, 0, stream>>>(h, ln2s, ln2b, ln, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  swin_block_fc1_kernel<<<gemm_grid<C, H>(rows, sms), P1::THREADS, P1::SMEM, stream>>>(
-      tl, t1, b1, u, rows);
+  swin_block_fc1_kernel<<<grids[FC1_LAUNCH], P1::THREADS, P1::SMEM, stream>>>(tl, t1, b1, u,
+                                                                              rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  swin_block_fc2_kernel<<<gemm_grid<H, C>(rows, sms), P2::THREADS, P2::SMEM, stream>>>(
+  swin_block_fc2_kernel<<<grids[FC2_LAUNCH], P2::THREADS, P2::SMEM, stream>>>(
       tu, t2, h, b2, static_cast<bf16*>(out), rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1010,19 +1025,33 @@ int launch_f32(const void* x, const void* rowmask, const void* ln1s, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// {windows a tile, warpgroups a window, threads a block, ring slots, dynamic
-// shared memory bytes, registers a thread, local (spill) bytes a thread} of
-// the tiled bf16 kernel.
+// A compiled kernel's shape into g[0..8): threads a block, dynamic shared
+// memory bytes a block, registers and local (spill) bytes a thread, then
+// the tile shape of its launch (`shape`, zeros after it).
+template <typename Kernel>
+int attributes(Kernel kernel, int threads, int smem, std::initializer_list<int> shape, int* g) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[4] = {threads, smem, attr.numRegs, static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 8; ++i) g[i] = 0;
+  for (int i = 0; i < 4; ++i) g[i] = v[i];
+  int i = 4;
+  for (int d : shape) g[i++] = d;
+  return 0;
+}
+
 template <int C>
 int attributes_sm90(int* g) {
   using P = BlockPlan<C>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, swin_block_bf16_sm90_kernel<C>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int v[7] = {P::G, P::CS, P::THREADS, P::STAGES, P::SMEM, attr.numRegs,
-                    static_cast<int>(attr.localSizeBytes)};
-  for (int i = 0; i < 7; ++i) g[i] = v[i];
-  return 0;
+  return attributes(swin_block_bf16_sm90_kernel<C>, P::THREADS, P::SMEM, {P::G, P::CS, P::STAGES},
+                    g);
+}
+
+template <int K, int N, typename Kernel>
+int attributes_gemm(Kernel kernel, int* g) {
+  using P = FlatGemm<K, N>;
+  return attributes(kernel, P::THREADS, P::SMEM, {P::BM, P::BN, P::STAGES, P::PER_SM}, g);
 }
 
 }  // namespace
@@ -1032,11 +1061,12 @@ int attributes_sm90(int* g) {
 // int32 or null; wproj [c, c]; bproj [c]; k1 [4c, c]; b1 [4c]; k2 [c, 4c];
 // b2 [c]. x, the four weight matrices, bias and out are bf16 when is_bf16 is
 // nonzero, else float32; everything else is float32. bf16 at c = 96, 192 and
-// 384 runs the tiled kernel, whose grid is `blocks` (ops/swin_block.py::
-// kernel_geometry), at most one a tile; at c = 768 the six launches of the
-// flat form, on grids of the current device's multiprocessors, with scratch
-// of FlatScratch(bnw * 49).bytes bytes, 16-byte aligned (null otherwise). c
-// is 96, 192, 384 or 768; any other width, a bad grid, missing scratch or
+// 384 runs the tiled kernel on grids[0] blocks, at most one a tile; at c =
+// 768 the six launches of the flat form on grids[0..6), in the order
+// FlatLaunch lists (the attention's a multiple of the heads), with scratch of
+// FlatScratch(bnw * 49).bytes bytes, 16-byte aligned; the grids come from
+// ops/swin_block.py::kernel_geometry; float32 takes neither (null). c is 96,
+// 192, 384 or 768; any other width, a grid out of range, missing scratch or
 // bf16 weights not 16-byte aligned return cudaErrorInvalidValue; the first
 // launch refused returns its error and the launches after it do not run.
 extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
@@ -1044,7 +1074,7 @@ extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
                           const void* bias, const void* region, const void* wproj,
                           const void* bproj, const void* ln2s, const void* ln2b, const void* k1,
                           const void* b1, const void* k2, const void* b2, void* scratch,
-                          void* out, int bnw, int c, int nw, int is_bf16, int blocks,
+                          void* out, int bnw, int c, int nw, int is_bf16, const int* grids,
                           void* stream) {
   if (bnw <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1056,7 +1086,7 @@ extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
   case C:                                                                                  \
     return is_bf16 ? launch_bf16_sm90<C>(x, rowmask, ln1s, ln1b, wqkv, bqkv, bias, reg,    \
                                          wproj, bproj, ln2s, ln2b, k1, b1, k2, b2, out,    \
-                                         bnw, nw, blocks, s)                               \
+                                         bnw, nw, grids == nullptr ? 0 : grids[0], s)       \
                    : SWIN_BLOCK_F32(C);
   switch (c) {
     SWIN_BLOCK_TILED(96)
@@ -1066,7 +1096,7 @@ extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
       auto f = [](const void* p) { return static_cast<const float*>(p); };
       return is_bf16 ? launch_flat(x, f(rowmask), f(ln1s), f(ln1b), wqkv, f(bqkv), bias, reg,
                                    wproj, f(bproj), f(ln2s), f(ln2b), k1, f(b1), k2, f(b2),
-                                   scratch, out, bnw, nw, s)
+                                   scratch, out, bnw, nw, grids, s)
                      : SWIN_BLOCK_F32(FLAT_C);
     }
     default:
@@ -1076,56 +1106,32 @@ extern "C" int swin_block(const void* x, const void* rowmask, const void* ln1s,
 #undef SWIN_BLOCK_F32
 }
 
-// The tiled bf16 kernel's compiled shape for width c (96, 192 or 384) into
-// g[0..7), in the order attributes_sm90 lists.
-extern "C" int swin_block_attributes(int c, int* g) {
-  switch (c) {
-    case 96: return attributes_sm90<96>(g);
-    case 192: return attributes_sm90<192>(g);
-    case 384: return attributes_sm90<384>(g);
+// The compiled shape of bf16 launch `which` at width c into g[0..8), as
+// attributes() lists it. c = 96, 192, 384: which 0, the tiled kernel, shape
+// {windows a tile, warpgroups a window, ring slots}. c = 768: which is a
+// FlatLaunch; the LayerNorms' shape {rows a block}, the attention's
+// {warpgroups a block, x ring slots a warpgroup}, a product's {rows a tile,
+// columns a tile, ring slots, blocks a multiprocessor}.
+extern "C" int swin_block_attributes(int c, int which, int* g) {
+  constexpr int C = FLAT_C;
+  if (c != C) {
+    if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
+    switch (c) {
+      case 96: return attributes_sm90<96>(g);
+      case 192: return attributes_sm90<192>(g);
+      case 384: return attributes_sm90<384>(g);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  using PH = HeadPlan<C>;
+  switch (which) {
+    case LN1_LAUNCH: return attributes(swin_block_ln1_kernel, LN_ROWS * 32, 0, {LN_ROWS}, g);
+    case HEADS_LAUNCH:
+      return attributes(swin_block_heads_kernel, PH::THREADS, PH::SMEM, {PH::WGN, PH::XS}, g);
+    case PROJ_LAUNCH: return attributes_gemm<C, C>(swin_block_proj_kernel, g);
+    case LN2_LAUNCH: return attributes(swin_block_ln2_kernel, LN_ROWS * 32, 0, {LN_ROWS}, g);
+    case FC1_LAUNCH: return attributes_gemm<C, 4 * C>(swin_block_fc1_kernel, g);
+    case FC2_LAUNCH: return attributes_gemm<4 * C, C>(swin_block_fc2_kernel, g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The compiled shape of the flat form's launch `which` (c = 768), in the
-// order they run: 0 LN1, 1 the attention, 2 proj, 3 LN2, 4 fc1, 5 fc2, into
-// g[0..4): threads a block, dynamic shared memory bytes a block, registers
-// and local (spill) bytes a thread.
-extern "C" int swin_block_flat_attributes(int which, int* g) {
-  constexpr int C = FLAT_C;
-  cudaFuncAttributes attr;
-  int threads = 0, smem = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (which) {
-    case 0:
-      threads = LN_ROWS * 32;
-      err = cudaFuncGetAttributes(&attr, swin_block_ln1_kernel);
-      break;
-    case 1:
-      threads = HeadPlan<C>::THREADS, smem = HeadPlan<C>::SMEM;
-      err = cudaFuncGetAttributes(&attr, swin_block_heads_kernel);
-      break;
-    case 2:
-      threads = ProjGemm::THREADS, smem = ProjGemm::SMEM;
-      err = cudaFuncGetAttributes(&attr, swin_block_proj_kernel);
-      break;
-    case 3:
-      threads = LN_ROWS * 32;
-      err = cudaFuncGetAttributes(&attr, swin_block_ln2_kernel);
-      break;
-    case 4:
-      threads = Fc1Gemm::THREADS, smem = Fc1Gemm::SMEM;
-      err = cudaFuncGetAttributes(&attr, swin_block_fc1_kernel);
-      break;
-    case 5:
-      threads = Fc2Gemm::THREADS, smem = Fc2Gemm::SMEM;
-      err = cudaFuncGetAttributes(&attr, swin_block_fc2_kernel);
-      break;
-    default:
-      break;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int v[4] = {threads, smem, attr.numRegs, static_cast<int>(attr.localSizeBytes)};
-  for (int i = 0; i < 4; ++i) g[i] = v[i];
-  return 0;
 }

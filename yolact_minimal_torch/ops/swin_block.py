@@ -12,10 +12,13 @@ attended to; the caller crops its output row.
 tensors on the card and runs the plain PyTorch version, `swin_block_plain`,
 for tensors on the CPU. It counts its calls that launch the kernels in
 `swin_block.launches` (one a call, whatever the launches in it).
-`kernel_geometry` fixes the bf16 launches' grids: at C = 96, 192 and 384 one
-launch over tiles of windows; at C = 768 six over the rows taken as one flat
-[B*nW*N, C] matrix (LayerNorm1, the attention, proj, LayerNorm2, fc1, fc2),
-passing what lies between them through a scratch buffer.
+`kernel_geometry` fixes the bf16 launches' grids, which the wrapper passes
+to the kernel: at C = 96, 192 and 384 one launch over tiles of windows; at
+C = 768 six over the rows taken as one flat [B*nW*N, C] matrix (LayerNorm1,
+the attention, proj, LayerNorm2, fc1, fc2), passing what lies between them
+through a scratch buffer. The tile shapes are the kernel's own, compiled
+into it; `launch_shapes` holds this module's copy of them, and
+`kernel_attributes` reads them from the compiled kernel.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm1 in float32 (eps 1e-5), times the rowmask,
@@ -60,7 +63,8 @@ WEIGHT_BOX_ROWS = (32, 96, 64, 96)    # TMA boxes of wqkv, wproj, k1, k2 (at mos
 # attn_block's phase 1 (attn_ops.HEAD_SHAPES); each product of
 # GEMM_LAUNCHES runs tiles of GEMM_ROWS rows by GEMM_SHAPES[launch] =
 # (columns, ring slots, blocks a multiprocessor) on persistent blocks of 256
-# threads, each slot a 64-wide k-block of both operands.
+# threads, each slot a 64-wide k-block of both operands. csrc/swin_block.cu
+# compiles these shapes (`launch_shapes`).
 SCRATCH_WIDTHS = (768,)
 FLAT_LAUNCHES = ('ln1', 'heads', 'proj', 'ln2', 'fc1', 'fc2')
 GEMM_LAUNCHES = ('proj', 'fc1', 'fc2')
@@ -73,8 +77,27 @@ def _align1k(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def shared_bytes(c: int):
-    """Dynamic shared memory of a tiled bf16 block at width c, as
+def launch_shapes(c: int) -> dict:
+    """The tile shape of each bf16 launch at width c, by name, in the order
+    they run, as csrc/swin_block.cu compiles it and `kernel_attributes`
+    reports it: {'tiled': (windows a tile, warpgroups a window, ring slots)}
+    at C = 96, 192 and 384; at C = 768 for each of FLAT_LAUNCHES, the
+    LayerNorms' (rows a block,), the attention's (warpgroups a block, x ring
+    slots a warpgroup) and a product's (rows a tile, columns a tile, ring
+    slots, blocks a multiprocessor)."""
+    if c in KERNEL_SHAPES:
+        return {'tiled': KERNEL_SHAPES[c][:3]}
+    if c not in SCRATCH_WIDTHS:
+        raise ValueError(f'launch_shapes: the kernels take C in '
+                         f'{tuple(KERNEL_SHAPES) + SCRATCH_WIDTHS}, got {c}')
+    shapes = {k: (GEMM_ROWS,) + GEMM_SHAPES[k] for k in GEMM_LAUNCHES}
+    shapes.update(ln1=(LN_ROWS,), ln2=(LN_ROWS,), heads=attn_ops.HEAD_SHAPES[c])
+    return {name: shapes[name] for name in FLAT_LAUNCHES}
+
+
+def shared_bytes(c: int) -> tuple:
+    """Dynamic shared memory a block of each bf16 launch at width c, in the
+    order of `launch_shapes`. Tiled: one launch, as
     BlockPlan<C> lays it out: per window the LN tile [64, C], the
     attention-output tile and one set of q, k, v tiles (two where CS > 1)
     with h [49, C] float32 over them, and where CS > 1 the gelu tile
@@ -94,7 +117,7 @@ def shared_bytes(c: int):
     slot = max(96 * kq, 64 * k1, 96 * cs) * 128
     barriers = 2 * stages * 8        # in window 0's unused tail where they fit
     tail = _align1k(used) - used >= barriers
-    return g * window + stages * slot + (0 if tail else barriers) + 1024
+    return (g * window + stages * slot + (0 if tail else barriers) + 1024,)
 
 
 def scratch_bytes(bnw: int, c: int) -> int:
@@ -145,6 +168,14 @@ class FlatGeometry(HeadGeometry):
         """The most tiles a block of a product walks."""
         i = GEMM_LAUNCHES.index(launch)
         return -(-self.row_tiles * self.col_tiles[i] // self.gemm_blocks[i])
+
+    @property
+    def grids(self) -> Tuple[int, ...]:
+        """Each launch's grid, in the order of FLAT_LAUNCHES, as the wrapper
+        passes them to the kernel."""
+        grid = dict(zip(GEMM_LAUNCHES, self.gemm_blocks), ln1=self.ln_blocks,
+                    ln2=self.ln_blocks, heads=self.blocks)
+        return tuple(grid[name] for name in FLAT_LAUNCHES)
 
 
 @lru_cache(maxsize=64)
@@ -241,16 +272,18 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
         return out
     is_bf16 = x.dtype == torch.bfloat16
     bnw, _, c = x.shape
-    scratch, blocks = None, 0
-    if is_bf16 and c in SCRATCH_WIDTHS:
-        scratch = torch.empty(scratch_bytes(bnw, c), dtype=torch.uint8, device=x.device)
-    elif is_bf16:
-        blocks = kernel_geometry(bnw, c, _sm_count(x.device.index or 0)).blocks
+    scratch, grids = None, None
+    if is_bf16:
+        geo = kernel_geometry(bnw, c, _sm_count(x.device.index or 0))
+        flat = c in SCRATCH_WIDTHS
+        grids = (ctypes.c_int * len(FLAT_LAUNCHES))(*(geo.grids if flat else (geo.blocks,)))
+        if flat:
+            scratch = torch.empty(scratch_bytes(bnw, c), dtype=torch.uint8, device=x.device)
     nw = rowmask.shape[0] if rowmask is not None else \
         region.shape[0] if region is not None else 0
     lib = _build.load('swin_block')
     fn = lib.swin_block
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
@@ -258,7 +291,8 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
         _build.launch(fn, ptr(x), ptr(rowmask), ptr(ln1_scale), ptr(ln1_bias), ptr(wqkv),
                       ptr(bqkv), ptr(bias), ptr(region), ptr(wproj), ptr(bproj),
                       ptr(ln2_scale), ptr(ln2_bias), ptr(k1), ptr(b1), ptr(k2), ptr(b2),
-                      ptr(scratch), ptr(out), bnw, c, nw, int(is_bf16), blocks, stream)
+                      ptr(scratch), ptr(out), bnw, c, nw, int(is_bf16),
+                      None if grids is None else ctypes.addressof(grids), stream)
     swin_block.launches += 1
     return out
 
@@ -266,33 +300,23 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
 swin_block.launches = 0
 
 
-ATTRIBUTE_KEYS = ('windows_per_tile', 'column_split', 'threads', 'stages', 'smem_bytes',
-                  'registers', 'spill_bytes')
+ATTRIBUTE_KEYS = ('threads', 'smem_bytes', 'registers', 'spill_bytes')
 
 
 def kernel_attributes(c: int) -> dict:
-    """The compiled bf16 kernels at width c. Tiled widths (KERNEL_SHAPES):
-    windows a tile, warpgroups a window, threads, ring slots and dynamic
-    shared memory bytes a block, and the registers and local (spill) bytes a
-    thread. C = 768: for each of FLAT_LAUNCHES the threads and dynamic shared
-    memory bytes a block and the registers and local bytes a thread."""
-    lib = _build.load('swin_block')
-    if c in SCRATCH_WIDTHS:
-        fn = lib.swin_block_flat_attributes
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        attrs = {}
-        for which, name in enumerate(FLAT_LAUNCHES):
-            out = (ctypes.c_int * len(attn_ops.ATTRIBUTE_KEYS))()
-            _build.launch(fn, which, ctypes.addressof(out))
-            attrs[name] = dict(zip(attn_ops.ATTRIBUTE_KEYS, out))
-        return attrs
-    if c not in KERNEL_SHAPES:
-        raise ValueError(f'kernel_attributes: the kernels take C in '
-                         f'{tuple(KERNEL_SHAPES) + SCRATCH_WIDTHS}, got {c}')
-    out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
-    fn = lib.swin_block_attributes
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    """The compiled bf16 launches at width c, by the names of
+    `launch_shapes`: each the threads and dynamic shared memory bytes a
+    block, the registers and local (spill) bytes a thread, and the tile
+    `shape` compiled into it, which should be the one `launch_shapes`
+    states."""
+    names = list(launch_shapes(c))
+    fn = _build.load('swin_block').swin_block_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.launch(fn, c, ctypes.addressof(out))
-    return dict(zip(ATTRIBUTE_KEYS, out))
+    attrs = {}
+    for which, name in enumerate(names):
+        out = (ctypes.c_int * 8)()
+        _build.launch(fn, c, which, ctypes.addressof(out))
+        attrs[name] = dict(zip(ATTRIBUTE_KEYS, out),
+                           shape=tuple(v for v in out[len(ATTRIBUTE_KEYS):] if v))
+    return attrs
