@@ -70,7 +70,20 @@ Phases, in order; any failure exits nonzero:
      busy share of one profiled step; (d) `python -m
      yolact_minimal_torch.train` on res50_custom at 256 for 220 steps with a
      validation at step 200: the logged loss falls, both checkpoints are
-     written, the box and mask rows are printed.
+     written, the box and mask rows are printed;
+  9. export and video: (a) `python -m yolact_minimal_torch.export` on a
+     seeded res50_coco .ckpt (544, float32, batch 1) must print the parity
+     line, and `python -m yolact_minimal_torch.detect_with_export --image`
+     must draw two seeded PNGs at their shapes; (b) swin_tiny_coco (544,
+     bf16, batch 8) in the 'mixed' forms through deploy.export_model, loaded
+     in a fresh process that imports nothing of models/: one call must launch
+     kernels 3-6 as the 'mixed' forward does and no other kernel, its outputs
+     must equal the live model's bit for bit, and the numpy tail on them must
+     agree with detect_postprocess_batch on the card; (c) a seeded 11-frame
+     mp4 through `detect --video --video_bs 4` and the driver's `--video`:
+     11 frames at the clip's size each; (d) each artifact call against the
+     live forward (CUDA events, median of 20, in turns; device time), the
+     export seconds, the CLIs' frame rates.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
 
@@ -82,7 +95,8 @@ all of each one's inputs. `launches` counts
 the res50_coco path for kernels 1-2, the composed
 swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
-CLI's, res50_coco/cli, and the eval path's, res50_custom/eval, too).
+CLI's, res50_coco/cli, and the eval path's, res50_custom/eval, too), and
+for kernels 3-6 the swin artifact's call, swin_tiny_coco/export_mixed.
 Kernels 3 and 4 also carry `train` (their launches a
 training step and, per stage, forward and backward ms under autograd),
 `backward_ms` and `backward_device_ms` (stage 0); `launches_by_path` has the
@@ -1364,19 +1378,22 @@ def phase_cli(dev):
     return launches
 
 
-def _eval_cli(args, cwd):
-    """`python -m yolact_minimal_torch.eval ARGS` in a subprocess from `cwd`, as a
-    user runs it; fails unless it exits 0. Returns (stdout, seconds)."""
+def _run_cli(module, args, cwd, timeout=600):
+    """`python -m yolact_minimal_torch.MODULE ARGS` in a subprocess from `cwd`
+    (or `python -c CODE` for module None), as a user runs it; fails unless it
+    exits 0. Returns (stdout, seconds)."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get('PYTHONPATH')) if p))
+    cmd = ['-c', *args] if module is None else ['-m', f'yolact_minimal_torch.{module}', *args]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, '-m', 'yolact_minimal_torch.eval', *args], cwd=cwd,
-                          env=env, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, *cmd], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
     seconds = time.perf_counter() - t0
-    _check(proc.returncode == 0, f'eval CLI {args} exited {proc.returncode}:\n'
-                                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    _check(proc.returncode == 0, f'{module or "python -c"} {args if module else ""} exited '
+                                 f'{proc.returncode}:\n{proc.stdout[-3000:]}\n'
+                                 f'{proc.stderr[-3000:]}')
     return proc.stdout, seconds
 
 
@@ -1508,7 +1525,7 @@ def phase_eval(dev, smi, kernel1):
             del det
         torch.cuda.empty_cache()
         for name, path in ckpts.items():
-            out, seconds = _eval_cli(['--weight', path, '--img_size', str(IMG)], root)
+            out, seconds = _run_cli('eval', ['--weight', path, '--img_size', str(IMG)], root)
             rows = _table_rows(out)
             print(f'eval CLI {name} {IMG}, 48 images of custom_dataset/, val_bs {EVAL_BS}, '
                   f'float32: exit 0 in {seconds:.2f} s (start-up, checkpoint read and model '
@@ -1516,8 +1533,8 @@ def phase_eval(dev, smi, kernel1):
             print(_rate_line(f'  eval CLI {name} at {IMG}', *_cli_rate(out), smi))
         work = os.path.join(tmp, 'work')
         os.makedirs(work)
-        out, seconds = _eval_cli(['--weight', ckpts['res50_custom'], '--img_size', str(IMG),
-                                  '--coco_api', *data], work)
+        out, seconds = _run_cli('eval', ['--weight', ckpts['res50_custom'], '--img_size',
+                                         str(IMG), '--coco_api', *data], work)
         for name in ('bbox_detections.json', 'mask_detections.json'):
             with open(os.path.join(work, 'results', name)) as f:
                 n = len(json.load(f))
@@ -1854,6 +1871,258 @@ def phase_train(dev, smi, kernels):
     return by_path, numbers
 
 
+# --- phase 9: export and video ---------------------------------------------------
+
+# The swin artifact's batch, the path whose forms it is exported with, and
+# the name of its launches in the kernels line; the seeded clip: frames (not
+# a multiple of the video batch), the detect CLI's video batch, width x height.
+EXPORT_SWIN_BATCH = 8
+EXPORT_FORMS = 'mixed'
+EXPORT_PATH = f'swin_tiny_coco/export_{EXPORT_FORMS}'
+VIDEO_FRAMES, VIDEO_BS, VIDEO_SIZE = 11, 4, (640, 480)
+EXPORT_TIMED_ITERS = 20
+# The fresh process that runs the swin artifact: it imports the operator
+# registrations (deploy.py) and the kernel wrappers, nothing of models/; sets
+# every launch counter to 0, calls the artifact once on the saved images and
+# writes the outputs, then prints the launches, the modules of models/ (or
+# JAX) it holds, and the artifact's meta.
+EXPORT_CHILD = """
+import json, sys
+import torch
+from yolact_minimal_torch.deploy import load_exported
+from yolact_minimal_torch.ops.attn_block import attn_block
+from yolact_minimal_torch.ops.mask_finalize import mask_finalize
+from yolact_minimal_torch.ops.suppression import suppression_iou_max
+from yolact_minimal_torch.ops.swin_block import swin_block
+from yolact_minimal_torch.ops.swin_mlp import mlp_block
+from yolact_minimal_torch.ops.window_attention import window_attention
+artifact, images, out, device = sys.argv[1:5]
+counters = dict(suppression_iou_max=suppression_iou_max, mask_finalize=mask_finalize,
+                window_attention=window_attention, swin_mlp=mlp_block,
+                attn_block=attn_block, swin_block=swin_block)
+call, meta, anchors = load_exported(artifact, device=device)
+x = torch.load(images).to(device)
+for f in counters.values():
+    f.launches = 0
+outs = call(x)
+if device == 'cuda':
+    torch.cuda.synchronize()
+launches = {k: f.launches for k, f in counters.items()}
+held = sorted(k for k in sys.modules if k.startswith('yolact_minimal_torch.models')
+              or k.split('.')[0] in ('jax', 'flax', 'yolact_minimal_tpu'))
+torch.save([o.cpu() for o in outs], out)
+print(json.dumps(dict(launches=launches, held=held, meta=meta)))
+"""
+
+
+def _frames_of(path):
+    """(frame count, (width, height)) of a video file, as cv2 reads them."""
+    from yolact_minimal_torch.utils import video
+    cv2 = video.import_cv2()
+    vid = cv2.VideoCapture(path)
+    try:
+        return (round(vid.get(cv2.CAP_PROP_FRAME_COUNT)),
+                (round(vid.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                 round(vid.get(cv2.CAP_PROP_FRAME_HEIGHT))))
+    finally:
+        vid.release()
+
+
+def _seeded_pngs(folder, seed):
+    """Two seeded PNGs of different shapes (colour ramps plus noise) in
+    `folder`; returns {name: (h, w)}."""
+    import os
+    import numpy as np
+    from yolact_minimal_torch.utils import image_io
+    rng = np.random.RandomState(seed)
+    shapes = {'wide.png': (480, 640), 'square.png': (IMG, IMG)}
+    os.makedirs(folder)
+    for name, (h, w) in shapes.items():
+        ramp = np.linspace(0, 200, w)[None, :, None] + np.linspace(0, 50, h)[:, None, None]
+        img = np.clip(ramp + rng.randint(0, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+        image_io.imwrite(os.path.join(folder, name), img)
+    return shapes
+
+
+def _fps_of(out, what):
+    m = re.findall(r'Finished, (\d+) frames at ([\d.]+) fps', out)
+    _check(m, f'{what} printed no frame rate:\n{out[-2000:]}')
+    return int(m[-1][0]), float(m[-1][1])
+
+
+def phase_export(dev, smi):
+    """Phase 9: export and video on the card. (a) the export CLI on a seeded
+    res50_coco .ckpt (544, float32, batch 1) must print the parity line, the
+    driver must draw two seeded PNGs at their shapes; (b) swin_tiny_coco (544,
+    bf16, batch EXPORT_SWIN_BATCH) in the EXPORT_FORMS forms through
+    deploy.export_model, loaded in a fresh process without models/: it must
+    launch kernels 3-6 as that path's forward does and no other kernel, give
+    the live model's outputs bit for bit, and its numpy tail must agree with
+    detect_postprocess_batch on the card; (c) a seeded VIDEO_FRAMES-frame mp4
+    through the detect CLI (--video_bs VIDEO_BS) and the driver: each must
+    write every frame at the clip's size; (d) the artifact calls against the
+    live forwards (CUDA events, median of EXPORT_TIMED_ITERS), the export
+    seconds, the CLIs' frame rates. Returns (the swin artifact's launches of
+    the four swin kernels, the numbers)."""
+    import json
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from yolact_minimal_torch import deploy
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.ops.nms import detect_postprocess_batch
+    from yolact_minimal_torch.ops.nms_numpy import detect_postprocess_numpy
+    from yolact_minimal_torch.pipeline import Detector, load_detector
+    from yolact_minimal_torch.utils import image_io, video
+    from yolact_minimal_torch.utils.checkpoint import save_checkpoint
+    from yolact_minimal_torch.utils.weights import to_jax_variables
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) res50_coco: the export CLI, then the driver on two PNGs
+        det = Detector(get_config('res50_coco', img_size=IMG), device=dev, seed=0)
+        sd = {k: v.cpu() for k, v in det.model.state_dict().items()}
+        sd['prediction_layers.conf_layer.bias'][1::81] += 6.0     # detections to draw
+        del det
+        weight = os.path.join(tmp, 'seeded_res50_coco.ckpt')
+        save_checkpoint(weight, to_jax_variables(sd))
+        on = ['--device', dev.type]
+        out, cli_s = _run_cli('export', ['--weight', weight, '--img_size', str(IMG), *on], tmp)
+        _check('Export parity check passed.' in out,
+               f'the export CLI printed no parity line:\n{out}')
+        res50_artifact = os.path.join(tmp, 'seeded_res50_coco.pt2')
+        numbers['res50_export_s'] = float(re.search(r'Exported to \S+ in ([\d.]+) s', out).group(1))
+        print(f'9a. export CLI, res50_coco {IMG} float32 batch 1: parity line printed; export '
+              f'{numbers["res50_export_s"]:.2f} s (trace, save, reload, parity), CLI '
+              f'{cli_s:.2f} s in all; artifact {os.path.getsize(res50_artifact) / 2 ** 20:.1f} MiB')
+        shapes = _seeded_pngs(os.path.join(tmp, 'images'), 9)
+        out, cli_s = _run_cli('detect_with_export', ['--artifact', res50_artifact, '--image',
+                                                     os.path.join(tmp, 'images'), *on], tmp)
+        for name, shape in shapes.items():
+            path = os.path.join(tmp, 'results', 'export_images', name)
+            _check(os.path.exists(path), f'the driver wrote no {name}')
+            drawn = image_io.imread(path)
+            _check(drawn.shape == shape + (3,), f'{name}: drawn {drawn.shape}, input {shape}')
+            _check(not np.array_equal(drawn, image_io.imread(os.path.join(tmp, 'images', name))),
+                   f'{name}: nothing was drawn')
+        numbers['driver_image_fps'] = float(re.findall(r'fps: ([\d.]+)', out)[-1])
+        print(f'    driver --image: both drawn PNGs {list(shapes.values())} at their shapes, '
+              f'{cli_s:.2f} s in all, {numbers["driver_image_fps"]:.2f} img/s after the first')
+
+        # (b) swin_tiny_coco, all four swin kernels in one artifact
+        cfg = get_config('swin_tiny_coco', img_size=IMG, compute_dtype='bfloat16',
+                         nms_score_thre=SCORE_THRE)
+        det = Detector(cfg, device=dev, seed=0)
+        det.model.backbone.set_block_forms(SWIN_PATHS[EXPORT_FORMS])
+        swin_artifact = os.path.join(tmp, f'swin_tiny_coco_{EXPORT_FORMS}.pt2')
+        t0 = time.perf_counter()
+        deploy.export_model(cfg, det.model, swin_artifact, batch=EXPORT_SWIN_BATCH, device=dev)
+        numbers['swin_export_s'] = time.perf_counter() - t0
+        g = torch.Generator(device=dev).manual_seed(3)
+        images = torch.randn(EXPORT_SWIN_BATCH, IMG, IMG, 3, device=dev, generator=g)
+        with torch.inference_mode():
+            live = det.model(images)
+        torch.save(images.cpu(), os.path.join(tmp, 'images.pt'))
+        out, child_s = _run_cli(None, [EXPORT_CHILD, swin_artifact, os.path.join(tmp, 'images.pt'),
+                                       os.path.join(tmp, 'outs.pt'), dev.type], tmp)
+        child = json.loads(out.strip().splitlines()[-1])
+        launches = child['launches']
+        want = dict(_swin_launches(EXPORT_FORMS), suppression_iou_max=0, mask_finalize=0)
+        print(f'9b. swin_tiny_coco {IMG} bf16 batch {EXPORT_SWIN_BATCH}, forms '
+              f'{child["meta"]["block_forms"]}: export {numbers["swin_export_s"]:.2f} s (parity '
+              f'line above); fresh process ({child_s:.2f} s) held {child["held"] or "no module"} '
+              f'of models/ or JAX; launches of one call {launches}, want {want}')
+        _check(not child['held'], f'the artifact\'s process imported {child["held"]}')
+        _check(child['meta']['block_forms'] == list(SWIN_PATHS[EXPORT_FORMS]),
+               f'meta.json block forms {child["meta"]["block_forms"]}')
+        _check(launches == want, f'the swin artifact launched {launches}, want {want}')
+        outs = torch.load(os.path.join(tmp, 'outs.pt'))
+        diffs = [float((o - l.cpu()).abs().max()) for o, l in zip(outs, live)]
+        equal = [torch.equal(o, l.cpu()) for o, l in zip(outs, live)]
+        print(f'    artifact against the live model, class / box / coef / proto: max |diff| '
+              f'{" / ".join(f"{d:.3g}" for d in diffs)}, bit-equal {equal}')
+        _check(all(equal), 'the swin artifact\'s outputs are not the live model\'s')
+        anchors = det.anchors.cpu().numpy()
+        dets = detect_postprocess_batch(*(o.to(dev) for o in outs[:3]), det.anchors,
+                                        cfg.nms_score_thre, cfg.nms_iou_thre, cfg.top_k,
+                                        cfg.max_detections, pre_topk=0)
+        worst, counts = 0.0, []
+        for j in range(EXPORT_SWIN_BATCH):
+            _, _, _, scores = detect_postprocess_numpy(
+                *(o[j].numpy() for o in outs[:3]), anchors, cfg.nms_score_thre,
+                cfg.nms_iou_thre, cfg.top_k, cfg.max_detections)
+            n = int(dets.valid[j].sum())
+            counts.append(n)
+            _check(n == (0 if scores is None else len(scores)),
+                   f'image {j}: {n} device detections, numpy {scores is not None and len(scores)}')
+            if n:
+                worst = max(worst, float(np.abs(np.sort(dets.scores[j, :n].cpu().numpy()) -
+                                                np.sort(scores)).max()))
+        print(f'    numpy tail against detect_postprocess_batch on the card (pre_topk off, '
+              f'score threshold {SCORE_THRE}): valid slots {counts} equal, sorted scores within '
+              f'{worst:.3g}')
+        _check(sum(counts) > 0 and worst <= 1e-5, f'sorted scores differ by {worst}')
+
+        # (c) video: the detect CLI and the driver on a seeded clip
+        cv2 = video.import_cv2()
+        clip = os.path.join(tmp, 'clip.mp4')
+        rng = np.random.RandomState(10)
+        writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*'mp4v'), 10, VIDEO_SIZE)
+        w, h = VIDEO_SIZE
+        for i in range(VIDEO_FRAMES):
+            ramp = np.linspace(0, 200, w)[None, :, None] + np.linspace(5 * i, 50, h)[:, None, None]
+            writer.write(np.clip(ramp + rng.randint(0, 40, (h, w, 3)), 0, 255).astype(np.uint8))
+        writer.release()
+        _check(_frames_of(clip) == (VIDEO_FRAMES, VIDEO_SIZE), f'the clip reads {_frames_of(clip)}')
+        out, video_s = _run_cli('detect', ['--weight', weight, '--video', clip, '--video_bs',
+                                           str(VIDEO_BS), '--img_size', str(IMG), *on], tmp)
+        frames, numbers['video_cli_fps'] = _fps_of(out, 'the detect CLI')
+        got = _frames_of(os.path.join(tmp, 'results', 'videos', 'clip.mp4'))
+        _check(frames == VIDEO_FRAMES and got == (VIDEO_FRAMES, VIDEO_SIZE),
+               f'the detect CLI wrote {got} from {frames} frames')
+        out, driver_s = _run_cli('detect_with_export', ['--artifact', res50_artifact, '--video',
+                                                        clip, *on], tmp)
+        frames, numbers['driver_video_fps'] = _fps_of(out, 'the driver')
+        got2 = _frames_of(os.path.join(tmp, 'results', 'export_videos', 'clip.mp4'))
+        _check(frames == VIDEO_FRAMES and got2 == (VIDEO_FRAMES, VIDEO_SIZE),
+               f'the driver wrote {got2} from {frames} frames')
+        print(f'9c. video, {VIDEO_FRAMES} frames {w}x{h}, res50_coco {IMG}: detect CLI '
+              f'--video_bs {VIDEO_BS} {numbers["video_cli_fps"]:.2f} fps after its first batch '
+              f'({video_s:.2f} s in all), driver (artifact batch 1) '
+              f'{numbers["driver_video_fps"]:.2f} fps ({driver_s:.2f} s); both wrote {got}')
+
+        # (d) each artifact call against the live forward, in turns
+        call_s, _, _ = deploy.load_exported(swin_artifact, dev)
+        call_r, _, _ = deploy.load_exported(res50_artifact, dev)
+        live_r = load_detector(weight, get_config('res50_coco', img_size=IMG), device=dev).model
+
+        def forward(model, x):
+            with torch.inference_mode():
+                return model(x)
+        pairs = {'res50_coco float32 b1': (lambda: call_r(images[:1]),
+                                           lambda: forward(live_r, images[:1])),
+                 f'swin_tiny_coco bf16 b{EXPORT_SWIN_BATCH} {EXPORT_FORMS}':
+                     (lambda: call_s(images), lambda: forward(det.model, images))}
+        for what, (artifact_fn, live_fn) in pairs.items():
+            runs = [_time_ms(f, iters=EXPORT_TIMED_ITERS)
+                    for f in (artifact_fn, live_fn, live_fn, artifact_fn)]
+            a, l = statistics.median(runs[::3]), statistics.median(runs[1:3])
+            dev_a, dev_l = _device_ms(artifact_fn), _device_ms(live_fn)
+            numbers[what] = dict(artifact_ms=a, live_ms=l, runs=runs, artifact_device_ms=dev_a,
+                                 live_device_ms=dev_l)
+            print(f'9d. {what}: artifact call {a:.3f} ms, live forward {l:.3f} ms (CUDA events, '
+                  f'median of {EXPORT_TIMED_ITERS}, in turns artifact / live / live / artifact: '
+                  f'{" / ".join(f"{r:.3f}" for r in runs)}); device time {dev_a:.3f} / '
+                  f'{dev_l:.3f} ms (torch.profiler); on {smi}')
+        del call_s, call_r, live_r, det, live, images
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    print(f'export phase: {numbers["phase_s"]:.2f} s')
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in SWIN_KERNELS}, numbers
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1887,6 +2156,7 @@ def main():
         torch.cuda.empty_cache()
     train_paths, _ = phase_train(dev, smi, kernels)
     by_path.update(train_paths)
+    by_path[EXPORT_PATH], _ = phase_export(dev, smi)
     # `launches` is the count on the path that runs the kernel
     own_path = {'suppression_iou_max': 'res50_coco', 'mask_finalize': 'res50_coco',
                 'window_attention': 'swin_tiny_coco/composed', 'swin_mlp': 'swin_tiny_coco/composed',

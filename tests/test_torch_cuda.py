@@ -709,3 +709,80 @@ def test_res50_near_identity_train_step_on_the_card_equals_the_cpu(card):
         over = {part: np.sqrt(d2 / n2) for part, (d2, n2, e2) in parts.items()
                 if np.sqrt(d2) > 1e-4 * np.sqrt(n2) + np.sqrt(e2)}
         assert not over, f'{what}: {over}'
+
+
+# --- the registered operators and an exported program ------------------------------
+
+MIXED = ('whole', 'attn_block', 'composed', 'composed')
+
+
+def _op_args(name, dev, dtype, grad=False):
+    """Operator `name`'s inputs at stage 0's widths (C = 96, 3 heads) for two
+    images of a 12 x 12 map padded to 14 x 14, shifted: 8 windows, 288 rows."""
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    g = torch.Generator().manual_seed(7)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(dev)
+    c, heads = 96, 3
+    region = torch.from_numpy(shifted_window_regions(14, 14)).to(dev)
+    rowmask = torch.from_numpy(pad_rowmask(12, 12, 14, 14, 3)).to(dev)
+    bias = r(heads, 49, 49, scale=0.5).to(dtype)
+    ln = (1 + r(c, scale=0.1), r(c, scale=0.1))
+    mlp = (r(4 * c, c, scale=0.05).to(dtype), r(4 * c, scale=0.05),
+           r(c, 4 * c, scale=0.05).to(dtype), r(c, scale=0.05))
+    attn = (r(3 * c, c, scale=0.05).to(dtype), r(3 * c, scale=0.05), bias, region,
+            r(c, c, scale=0.05).to(dtype), r(c, scale=0.05))
+    leaf = lambda t: t.requires_grad_() if grad else t
+    return {'window_attention': lambda: (leaf(r(8, 49, 3 * c).to(dtype)), leaf(bias.clone()),
+                                         region, heads),
+            'mlp_block': lambda: tuple(leaf(t) for t in (r(288, c).to(dtype),) + ln + mlp),
+            'attn_block': lambda: (r(8, 49, c).to(dtype),) + attn + (heads,),
+            'swin_block': lambda: (r(8, 49, c).to(dtype), rowmask) + ln + attn + ln + mlp +
+            (heads,)}[name]()
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('name', ['window_attention', 'mlp_block', 'attn_block', 'swin_block'])
+def test_registered_op_on_the_card_passes_opcheck(card, name, dtype):
+    """Each operator's CUDA implementation against its fake (shape, dtype and
+    strides of the output) and its schema; kernels 3 and 4 also with inputs
+    that need a gradient. The operator launches the kernel once a call and
+    gives the wrapper's bits."""
+    wrapper = {'window_attention': window_attention, 'mlp_block': mlp_block,
+               'attn_block': attn_block, 'swin_block': swin_block}[name]
+    op = getattr(torch.ops.yolact_torch, name)
+    cases = [(_op_args(name, card, dtype), ('test_schema', 'test_faketensor'))]
+    if name in ('window_attention', 'mlp_block'):
+        cases.append((_op_args(name, card, dtype, grad=True),
+                      ('test_schema', 'test_faketensor', 'test_autograd_registration')))
+    for args, utils in cases:
+        result = torch.library.opcheck(op, args, test_utils=utils)
+        assert set(result.values()) == {'SUCCESS'}, result
+    args = cases[0][0]
+    before = wrapper.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(out, wrapper(*args))
+
+
+def test_bf16_swin_artifact_on_the_card_equals_its_live_model(card, tmp_path):
+    """swin_tiny_coco at 128 px in bf16 and the 'mixed' forms: the artifact
+    launches each swin kernel as the live forward does and gives its bits."""
+    from yolact_minimal_torch import deploy
+    from yolact_minimal_torch.pipeline import Detector
+    cfg = get_config('swin_tiny_coco', img_size=128, compute_dtype='bfloat16')
+    det = Detector(cfg, seed=0)
+    det.model.backbone.set_block_forms(MIXED)
+    path = deploy.export_model(cfg, det.model, str(tmp_path / 'swin.pt2'), batch=2)
+    call, meta, _ = deploy.load_exported(path)
+    assert meta['block_forms'] == list(MIXED) and meta['device'] == 'cuda'
+    images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.inference_mode():
+        live = det.model(images)
+    counters = (window_attention, mlp_block, attn_block, swin_block)
+    before = [f.launches for f in counters]
+    outs = call(images)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [8, 10, 2, 2]
+    for a, b in zip(live, outs):
+        assert torch.equal(a, b)

@@ -23,7 +23,8 @@ def test_port_imports_no_jax():
     for module in ('ops.mask_finalize', 'ops.window_attention', 'ops.swin_mlp',
                    'ops.attn_block', 'ops.swin_block', 'models.swin', 'eval',
                    'utils.msgpack', 'utils.checkpoint', 'data.coco', 'utils.cocoeval',
-                   'train', 'train_state', 'ops.losses', 'ops.matching', 'data.augment'):
+                   'train', 'train_state', 'ops.losses', 'ops.matching', 'data.augment',
+                   'ops.nms_numpy', 'deploy', 'export', 'detect_with_export'):
         assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'

@@ -74,12 +74,13 @@ NO_CV2_TRAIN = ('training needs cv2: the augmentation converts colours and '
                 'resizes images and masks with cv2, as the reference does')
 
 
-def import_cv2():
-    """cv2, or an ImportError that says what training needs it for."""
+def import_cv2(needs: str = NO_CV2_TRAIN):
+    """cv2, or an ImportError that says what needs it (training unless
+    `needs` says otherwise)."""
     try:
         import cv2
     except ImportError:
-        raise ImportError(NO_CV2_TRAIN) from None
+        raise ImportError(needs) from None
     return cv2
 
 

@@ -84,8 +84,22 @@ def shifted_window_regions(hp: int, wp: int, window: int = WINDOW,
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_table(make, args: tuple, device: torch.device) -> Optional[torch.Tensor]:
+    table = make(*args)
+    return None if table is None else torch.from_numpy(np.ascontiguousarray(table)).to(device)
+
+
+def _table_on(make, *args, device: torch.device) -> Optional[torch.Tensor]:
+    """The static numpy table `make(*args)` on `device`, made once per
+    arguments and device; under torch.export made afresh, so that no traced
+    tensor enters the cache."""
+    if torch.compiler.is_exporting():
+        return _cached_table.__wrapped__(make, args, device)
+    return _cached_table(make, args, device)
+
+
 def _regions_on(hp: int, wp: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(shifted_window_regions(hp, wp))).to(device)
+    return _table_on(shifted_window_regions, hp, wp, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,11 +119,9 @@ def pad_rowmask(h: int, w: int, hp: int, wp: int, shift: int,
     return m.transpose(0, 2, 1, 3).reshape(-1, window * window)
 
 
-@functools.lru_cache(maxsize=None)
 def _rowmask_on(h: int, w: int, hp: int, wp: int, shift: int,
                 device: torch.device) -> Optional[torch.Tensor]:
-    m = pad_rowmask(h, w, hp, wp, shift)
-    return None if m is None else torch.from_numpy(np.ascontiguousarray(m)).to(device)
+    return _table_on(pad_rowmask, h, w, hp, wp, shift, device=device)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -134,13 +146,17 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torc
 
 class _Derived:
     """A value derived from parameters, recomputed only after one of them was
-    written in place or moved."""
+    written in place or moved. Under torch.export it is computed afresh and
+    nothing is stored: traced parameters have no storage to key on, and a
+    traced value must not reach a later eager call."""
 
     def __init__(self):
         self._key = None
         self._value = None
 
     def get(self, params: Sequence[torch.Tensor], make):
+        if torch.compiler.is_exporting():
+            return make()
         key = tuple((p.device, p.data_ptr(), p._version) for p in params)
         if key != self._key:
             self._key, self._value = key, make()
@@ -403,6 +419,12 @@ class SwinTiny(nn.Module):
             for block in stage.blocks:
                 block.fused_attn_block = form == 'attn_block'
                 block.fused_whole = form == 'whole'
+
+    def block_forms(self) -> Tuple[str, ...]:
+        """The form of each stage's blocks, as `set_block_forms` set them."""
+        return tuple('whole' if stage.blocks[0].fused_whole else
+                     'attn_block' if stage.blocks[0].fused_attn_block else 'composed'
+                     for stage in self.layers)
 
     def forward(self, x, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:

@@ -6,11 +6,13 @@ with `attention` the per-window, per-head softmax of `ops/window_attention.py`.
 
 `attn_block` launches the hand-written CUDA kernel (`csrc/attn_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `attn_block_plain`,
-for tensors on the CPU. It counts its kernel launches in
-`attn_block.launches`. `kernel_geometry` states the bf16 launch's grids (tiles
-of windows on persistent blocks at C = 96; two phases at C = 192, 384 and
-768: a block per head and chunk of windows, then persistent blocks over
-64-row tiles of the output) and `shared_bytes` their shared memory.
+for tensors on the CPU, through the registered operator
+`yolact_torch::attn_block` (no backward), so that `torch.export` records the
+call. It counts its kernel launches in `attn_block.launches`.
+`kernel_geometry` states the bf16 launch's grids (tiles of windows on
+persistent blocks at C = 96; two phases at C = 192, 384 and 768: a block per
+head and chunk of windows, then persistent blocks over 64-row tiles of the
+output) and `shared_bytes` their shared memory.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: qkv accumulates in float32, `+ bqkv` in float32, rounded to
@@ -240,19 +242,29 @@ def _check(x, wqkv, bqkv, bias, region, wproj, bproj, heads):
     tensors = [x, wqkv, bqkv, bias, wproj, bproj] + ([] if region is None else [region])
     if len({t.device for t in tensors}) != 1:
         raise ValueError('attn_block: inputs lie on different devices')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'attn_block: unsupported device {x.device}')
 
 
 def attn_block(x, wqkv, bqkv, bias, region: Optional[torch.Tensor], wproj, bproj,
                heads: int) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU. Window w of the batch-major leading axis uses
-    region row w % nW. A caller that runs in bfloat16 passes wqkv and wproj
-    already in bfloat16; float32 weights are rounded here, on every call."""
+    for tensors on the CPU, through the registered operator. Window w of the
+    batch-major leading axis uses region row w % nW. A caller that runs in
+    bfloat16 passes wqkv and wproj already in bfloat16; float32 weights are
+    rounded here, on every call."""
     _check(x, wqkv, bqkv, bias, region, wproj, bproj, heads)
+    return _attn_block_op(x, wqkv, bqkv, bias, region, wproj, bproj, heads)
+
+
+@torch.library.custom_op('yolact_torch::attn_block', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _attn_block_op(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, bias: torch.Tensor,
+                   region: Optional[torch.Tensor], wproj: torch.Tensor, bproj: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card."""
     if x.device.type == 'cpu':
         return attn_block_plain(x, wqkv, bqkv, bias, region, wproj, bproj, heads)
-    if x.device.type != 'cuda':
-        raise ValueError(f'attn_block: unsupported device {x.device}')
     check_kernel_shape('attn_block', x, heads)
     wqkv, wproj = wqkv.to(x.dtype), wproj.to(x.dtype)
     out = torch.empty_like(x)
@@ -271,6 +283,11 @@ def attn_block(x, wqkv, bqkv, bias, region: Optional[torch.Tensor], wproj, bproj
                       int(x.dtype == torch.bfloat16), stream)
     attn_block.launches += 1
     return out
+
+
+@_attn_block_op.register_fake
+def _(x, wqkv, bqkv, bias, region, wproj, bproj, heads):
+    return torch.empty_like(x)
 
 
 attn_block.launches = 0

@@ -90,3 +90,54 @@ def crop(masks: torch.Tensor, boxes: torch.Tensor, padding: int = 1) -> torch.Te
     x1, x2, y1, y2 = (t[..., None, None, :] for t in (x1, x2, y1, y2))
     keep = (cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)
     return masks * keep.to(masks.dtype)
+
+
+# Numpy counterparts, for the exported-artifact driver's host tail
+# (ops/nms_numpy.py): the same arithmetic on numpy arrays, no torch.
+
+def box_iou_numpy(box_a: np.ndarray, box_b: np.ndarray) -> np.ndarray:
+    """box_iou on numpy arrays: [..., A, 4] x [..., B, 4] -> [..., A, B]."""
+    a = box_a[..., :, None, :]
+    b = box_b[..., None, :, :]
+    max_xy = np.minimum(a[..., 2:], b[..., 2:])
+    min_xy = np.maximum(a[..., :2], b[..., :2])
+    inter = np.clip(max_xy - min_xy, 0.0, None)
+    inter_area = inter[..., 0] * inter[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter_area / (area_a + area_b - inter_area)
+
+
+def sanitize_coordinates_numpy(x1, x2, img_size, padding: int = 0):
+    """sanitize_coordinates on numpy arrays."""
+    x1 = x1 * img_size
+    x2 = x2 * img_size
+    lo = np.minimum(x1, x2)
+    hi = np.maximum(x1, x2)
+    lo = np.clip(lo - padding, 0.0, None)
+    hi = np.minimum(hi + padding, img_size)
+    return lo, hi
+
+
+def crop_numpy(masks: np.ndarray, boxes: np.ndarray, padding: int = 1) -> np.ndarray:
+    """crop of one image's masks [h, w, n] by its boxes [n, 4]."""
+    h, w, _ = masks.shape
+    x1, x2 = sanitize_coordinates_numpy(boxes[:, 0], boxes[:, 2], w, padding)
+    y1, y2 = sanitize_coordinates_numpy(boxes[:, 1], boxes[:, 3], h, padding)
+    rows = np.arange(w, dtype=np.float32)[None, :, None]
+    cols = np.arange(h, dtype=np.float32)[:, None, None]
+    keep = ((rows >= x1[None, None, :]) & (rows < x2[None, None, :]) &
+            (cols >= y1[None, None, :]) & (cols < y2[None, None, :]))
+    return masks * keep.astype(masks.dtype)
+
+
+def decode_numpy(offsets: np.ndarray, anchors: np.ndarray, clip: bool = True) -> np.ndarray:
+    """decode on numpy arrays."""
+    cxcy = anchors[..., :2] + offsets[..., :2] * VARIANCES[0] * anchors[..., 2:]
+    wh = anchors[..., 2:] * np.exp(offsets[..., 2:] * VARIANCES[1])
+    x1y1 = cxcy - wh / 2
+    x2y2 = wh + x1y1
+    boxes = np.concatenate([x1y1, x2y2], axis=-1)
+    if clip:
+        boxes = np.clip(boxes, 0.0, 1.0)
+    return boxes

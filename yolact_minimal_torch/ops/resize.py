@@ -51,12 +51,14 @@ def _gather_lerp(in_size: int, out_size: int, align_corners: bool):
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     align_corners: bool = False) -> torch.Tensor:
-    """Bilinear-resize the two spatial axes of an NCHW tensor, in its dtype
-    (autocast computes the interpolation in float32; the JAX package's
-    resize stays in the compute dtype, so the result is cast back)."""
+    """Bilinear-resize the two spatial axes of an NCHW tensor, computed in
+    float32 and returned in its dtype (the JAX package's resize returns the
+    compute dtype). The float32 input is explicit: autocast on the card
+    interpolates in float32 and on the CPU in the input's dtype, and an
+    exported program must see the same dtype when traced and when run."""
     if tuple(x.shape[-2:]) == (out_h, out_w):
         return x
-    return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
+    return F.interpolate(x.float(), size=(out_h, out_w), mode='bilinear',
                          align_corners=align_corners).to(x.dtype)
 
 

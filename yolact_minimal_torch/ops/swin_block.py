@@ -10,8 +10,11 @@ attended to; the caller crops its output row.
 
 `swin_block` launches the hand-written CUDA kernel (`csrc/swin_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `swin_block_plain`,
-for tensors on the CPU. It counts its calls that launch the kernels in
-`swin_block.launches` (one a call, whatever the launches in it).
+for tensors on the CPU, through the registered operator
+`yolact_torch::swin_block` (no backward), so that `torch.export` records the
+call; the scratch and the grids stay inside the operator's CUDA side. It
+counts its calls that launch the kernels in `swin_block.launches` (one a
+call, whatever the launches in it).
 `kernel_geometry` fixes the bf16 launches' grids, which the wrapper passes
 to the kernel: at C = 96, 192 and 384 one launch over tiles of windows; at
 C = 768 six over the rows taken as one flat [B*nW*N, C] matrix (LayerNorm1,
@@ -248,23 +251,37 @@ def _check(x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region, wproj, bpr
                k1, b1, k2, b2] + [t for t in (rowmask, region) if t is not None]
     if len({t.device for t in tensors}) != 1:
         raise ValueError('swin_block: inputs lie on different devices')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'swin_block: unsupported device {x.device}')
 
 
 def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bqkv, bias,
                region: Optional[torch.Tensor], wproj, bproj, ln2_scale, ln2_bias,
                k1, b1, k2, b2, heads: int) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU. Window w of the batch-major leading axis uses row
-    w % nW of rowmask and of region. A caller that runs in bfloat16 passes the
-    four weight matrices already in bfloat16; float32 weights are rounded
-    here, on every call."""
+    for tensors on the CPU, through the registered operator. Window w of the
+    batch-major leading axis uses row w % nW of rowmask and of region. A
+    caller that runs in bfloat16 passes the four weight matrices already in
+    bfloat16; float32 weights are rounded here, on every call."""
     args = (x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region, wproj, bproj,
             ln2_scale, ln2_bias, k1, b1, k2, b2, heads)
     _check(*args)
+    return _swin_block_op(*args)
+
+
+@torch.library.custom_op('yolact_torch::swin_block', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _swin_block_op(x: torch.Tensor, rowmask: Optional[torch.Tensor], ln1_scale: torch.Tensor,
+                   ln1_bias: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                   bias: torch.Tensor, region: Optional[torch.Tensor], wproj: torch.Tensor,
+                   bproj: torch.Tensor, ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+                   k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card: its flat form's
+    scratch and every launch's grid are made here, never in the fake."""
     if x.device.type == 'cpu':
-        return swin_block_plain(*args)
-    if x.device.type != 'cuda':
-        raise ValueError(f'swin_block: unsupported device {x.device}')
+        return swin_block_plain(x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region,
+                                wproj, bproj, ln2_scale, ln2_bias, k1, b1, k2, b2, heads)
     check_kernel_shape('swin_block', x, heads)
     wqkv, wproj, k1, k2 = (w.to(x.dtype) for w in (wqkv, wproj, k1, k2))
     out = torch.empty_like(x)
@@ -295,6 +312,12 @@ def swin_block(x, rowmask: Optional[torch.Tensor], ln1_scale, ln1_bias, wqkv, bq
                       None if grids is None else ctypes.addressof(grids), stream)
     swin_block.launches += 1
     return out
+
+
+@_swin_block_op.register_fake
+def _(x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region, wproj, bproj, ln2_scale,
+      ln2_bias, k1, b1, k2, b2, heads):
+    return torch.empty_like(x)
 
 
 swin_block.launches = 0

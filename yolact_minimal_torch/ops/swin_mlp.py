@@ -2,12 +2,13 @@
 
 `mlp_block` launches the hand-written CUDA kernel (`csrc/swin_mlp.cu`) for
 tensors on the card and runs the plain PyTorch version, `mlp_block_plain`,
-for tensors on the CPU. It counts its kernel launches in
-`mlp_block.launches`. Where an input needs a gradient it runs under autograd
-(`_MlpBlockFn`): the same forward, and a backward that recomputes the plain
-version from the saved inputs, as the JAX package's custom_vjp does through
-its XLA form; gradients go to x, the LayerNorm scale and bias, k1, b1, k2
-and b2.
+for tensors on the CPU, through the registered operator
+`yolact_torch::mlp_block`, so that `torch.export` records the call and an
+exported program launches the kernel. It counts its kernel launches in
+`mlp_block.launches`. The operator's backward (`register_autograd`)
+recomputes the plain version from the saved inputs, as the JAX package's
+custom_vjp does through its XLA form; gradients go to x, the LayerNorm scale
+and bias, k1, b1, k2 and b2.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm in float32 (eps 1e-5), rounded to the compute
@@ -63,42 +64,26 @@ def _check(x, ln_scale, ln_bias, k1, b1, k2, b2):
                              f'or float32, got {t.dtype} {tuple(t.shape)}')
     if len({t.device for t in (x, ln_scale, ln_bias, k1, b1, k2, b2)}) != 1:
         raise ValueError('mlp_block: inputs lie on different devices')
-
-
-class _MlpBlockFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, *inputs):
-        ctx.save_for_backward(*inputs)
-        return _forward(*inputs)
-
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = ctx.saved_tensors
-        with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(inputs, ctx.needs_input_grad)]
-            out = mlp_block_plain(*inputs)
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'mlp_block: unsupported device {x.device}')
 
 
 def mlp_block(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU, through an autograd Function (its backward
+    for tensors on the CPU, through the registered operator (its backward
     recomputes the plain version).
     A caller that runs in bfloat16 passes k1 and k2 already in bfloat16
     (models/swin.py keeps such copies per block); float32 weights are
     rounded here, on every call."""
     _check(x, ln_scale, ln_bias, k1, b1, k2, b2)
-    return _MlpBlockFn.apply(x, ln_scale, ln_bias, k1, b1, k2, b2)
+    return _mlp_block_op(x, ln_scale, ln_bias, k1, b1, k2, b2)
 
 
 def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
+    """The operator on a CPU or CUDA tensor: the plain version on the CPU,
+    the kernel on the card."""
     if x.device.type == 'cpu':
         return mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2)
-    if x.device.type != 'cuda':
-        raise ValueError(f'mlp_block: unsupported device {x.device}')
     rows, c = x.shape
     if c not in KERNEL_WIDTHS:
         raise ValueError(f'mlp_block: the kernel takes C in {KERNEL_WIDTHS}, got {c}')
@@ -118,6 +103,37 @@ def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
     mlp_block.launches += 1
     return out
 
+
+@torch.library.custom_op('yolact_torch::mlp_block', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _mlp_block_op(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                  k1: torch.Tensor, b1: torch.Tensor, k2: torch.Tensor,
+                  b2: torch.Tensor) -> torch.Tensor:
+    # `_forward` is looked up at each call: a test may wrap it
+    return _forward(x, ln_scale, ln_bias, k1, b1, k2, b2)
+
+
+@_mlp_block_op.register_fake
+def _(x, ln_scale, ln_bias, k1, b1, k2, b2):
+    return torch.empty_like(x)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad):
+    inputs = ctx.saved_tensors
+    with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, ctx.needs_input_grad)]
+        out = mlp_block_plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+_mlp_block_op.register_autograd(_backward, setup_context=_setup_context)
 
 mlp_block.launches = 0
 

@@ -3,12 +3,13 @@ softmax(q k^T * hd^-0.5 + rel_bias[h] + (-100 where region ids differ)) v.
 
 `window_attention` launches the hand-written CUDA kernel
 (`csrc/window_attention.cu`) for tensors on the card and runs the plain
-PyTorch version, `window_attention_plain`, for tensors on the CPU. It counts
-its kernel launches in `window_attention.launches`. Where qkv or bias needs
-a gradient it runs under autograd (`_WindowAttentionFn`): the same forward,
-and a backward that recomputes the plain version from the saved qkv and
-bias, as the JAX package's custom_vjp does through its XLA form, so no
-[*, N, N] residual is kept. The region ids get no gradient.
+PyTorch version, `window_attention_plain`, for tensors on the CPU, through
+the registered operator `yolact_torch::window_attention`, so that
+`torch.export` records the call and an exported program launches the kernel.
+It counts its kernel launches in `window_attention.launches`. The operator's
+backward (`register_autograd`) recomputes the plain version from the saved
+qkv and bias, as the JAX package's custom_vjp does through its XLA form, so
+no [*, N, N] residual is kept. The region ids get no gradient.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: `q * scale` is rounded to the compute dtype (the scale
@@ -105,6 +106,8 @@ def window_attention_plain(qkv, bias, region: Optional[torch.Tensor],
 
 
 def _check(qkv, bias, region, heads):
+    if qkv.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'window_attention: unsupported device {qkv.device}')
     if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
         raise ValueError(f'window_attention takes qkv [B*nW, N, 3C] with C a multiple '
                          f'of heads={heads}, got {tuple(qkv.shape)}')
@@ -125,38 +128,23 @@ def _check(qkv, bias, region, heads):
                              f'number of images of {region.shape[0]} windows')
 
 
-class _WindowAttentionFn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, bias, region, heads):
-        ctx.save_for_backward(qkv, bias)
-        ctx.region, ctx.heads = region, heads
-        return _forward(qkv, bias, region, heads)
-
-    @staticmethod
-    def backward(ctx, grad):
-        qkv, bias = ctx.saved_tensors
-        with torch.enable_grad(), torch.autocast(qkv.device.type, enabled=False):
-            qkv, bias = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
-            out = window_attention_plain(qkv, bias, ctx.region, ctx.heads)
-            d_qkv, d_bias = torch.autograd.grad(out, (qkv, bias), grad)
-        return d_qkv, d_bias, None, None
-
-
 def window_attention(qkv, bias, region: Optional[torch.Tensor],
                      heads: int) -> torch.Tensor:
     """Kernel wrapper: CUDA kernel for tensors on the card, plain version
-    for tensors on the CPU, through an autograd Function (its backward
+    for tensors on the CPU, through the registered operator (its backward
     recomputes the plain version). Window w of the batch-major leading
     axis uses region row w % nW. Returns [B*nW, N, C] in qkv's dtype."""
     _check(qkv, bias, region, heads)
-    return _WindowAttentionFn.apply(qkv, bias, region, heads)
+    return _window_attention_op(qkv, bias, region, heads)
 
 
-def _forward(qkv, bias, region, heads):
+@torch.library.custom_op('yolact_torch::window_attention', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, region: Optional[torch.Tensor],
+                         heads: int) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card."""
     if qkv.device.type == 'cpu':
         return window_attention_plain(qkv, bias, region, heads)
-    if qkv.device.type != 'cuda':
-        raise ValueError(f'window_attention: unsupported device {qkv.device}')
     bnw, n, c3 = qkv.shape
     c = c3 // 3
     if n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM:
@@ -182,6 +170,30 @@ def _forward(qkv, bias, region, heads):
                       stream)
     window_attention.launches += 1
     return out
+
+
+@_window_attention_op.register_fake
+def _(qkv, bias, region, heads):
+    bnw, n, c3 = qkv.shape
+    return qkv.new_empty((bnw, n, c3 // 3))
+
+
+def _setup_context(ctx, inputs, output):
+    qkv, bias, region, heads = inputs
+    ctx.save_for_backward(qkv, bias)
+    ctx.region, ctx.heads = region, heads
+
+
+def _backward(ctx, grad):
+    qkv, bias = ctx.saved_tensors
+    with torch.enable_grad(), torch.autocast(qkv.device.type, enabled=False):
+        qkv, bias = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+        out = window_attention_plain(qkv, bias, ctx.region, ctx.heads)
+        d_qkv, d_bias = torch.autograd.grad(out, (qkv, bias), grad)
+    return d_qkv, d_bias, None, None
+
+
+_window_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 window_attention.launches = 0

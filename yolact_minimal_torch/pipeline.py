@@ -24,15 +24,7 @@ from yolact_minimal_torch.ops.mask_finalize import mask_finalize
 from yolact_minimal_torch.ops.nms import (Detections, assemble_masks,
                                           detect_postprocess_batch)
 from yolact_minimal_torch.utils.checkpoint import load_weights_auto
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """torch.device of `device`; raises for a CUDA device without a card."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('CUDA is not available; pass device="cpu" to run '
-                           'on the CPU')
-    return device
+from yolact_minimal_torch.utils.device import resolve_device
 
 
 class Detector:

@@ -27,13 +27,14 @@ import torch
 from yolact_minimal_torch.config import cfg_name_from_weight, get_config
 from yolact_minimal_torch.data.augment import import_cv2
 from yolact_minimal_torch.data.coco import COCODetection, TrainLoader
-from yolact_minimal_torch.pipeline import Detector, resolve_device
+from yolact_minimal_torch.pipeline import Detector
 from yolact_minimal_torch.train_state import (create_train_state, fast_forward_schedule,
                                               lr_schedule, opt_state_to_payload,
                                               restore_opt_state, train_step)
 from yolact_minimal_torch.utils import timer
 from yolact_minimal_torch.utils.checkpoint import (load_checkpoint, load_weights_auto,
                                                    save_best, save_latest, step_from_name)
+from yolact_minimal_torch.utils.device import resolve_device
 from yolact_minimal_torch.utils.weights import to_jax_variables
 
 

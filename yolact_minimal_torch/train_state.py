@@ -29,7 +29,7 @@ from yolact_minimal_torch.config import Config
 from yolact_minimal_torch.models.yolact import Yolact
 from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.ops.losses import LossBreakdown, compute_loss
-from yolact_minimal_torch.pipeline import resolve_device
+from yolact_minimal_torch.utils.device import resolve_device
 from yolact_minimal_torch.utils.weights import from_jax_variables, to_jax_variables
 
 
