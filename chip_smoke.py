@@ -84,6 +84,18 @@ Phases, in order; any failure exits nonzero:
      11 frames at the clip's size each; (d) each artifact call against the
      live forward (CUDA events, median of 20, in turns; device time), the
      export seconds, the CLIs' frame rates.
+  10. the flags: (a) `python -m yolact_minimal_torch.eval --traditional_nms`
+     on a seeded res50_custom .ckpt over the first 16 images of
+     custom_dataset/ (exit 0, finite rows, img/s) after the g++ build of csrc/nms.cc, then one batch in this
+     process (kernel 1 not launched; candidates per image; the host tail's
+     ms); (b) the detect CLI with --traditional_nms --save_lincomb on two
+     seeded PNGs (images at their shapes, the lincomb grids written); (c) a
+     swin_tiny_coco bf16 Detector with traditional_nms: kernels 3 and 4 12
+     times, kernel 1 never, its slate equal to the numpy tail on the card's
+     raw outputs; (d) train_step with and without --remat, res50_coco and
+     swin_tiny_coco, bf16, 544/b8: the losses of the first step within 1e-3,
+     ms a step, peak memory, the launches of kernels 3 and 4 (24 and 2 a
+     remat swin step); (e) the train CLI with --backbone_weight and --remat.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
 
@@ -101,7 +113,10 @@ Kernels 3 and 4 also carry `train` (their launches a
 training step and, per stage, forward and backward ms under autograd),
 `backward_ms` and `backward_device_ms` (stage 0); `launches_by_path` has the
 three training paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
-swin_tiny_coco/train_bfloat16). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
+swin_tiny_coco/train_bfloat16), and phase 10's: the traditional paths
+(res50_custom/eval_traditional, res50_coco/cli_traditional,
+swin_tiny_coco/traditional) and the remat pairs
+({res50_coco,swin_tiny_coco}/train_{plain,remat}_bfloat16, over 6 steps). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
 around one call, the wrapper's host work included; the suppression,
 window-attention, mask and both block kernels also have `device_ms`, the
@@ -1840,11 +1855,12 @@ def phase_train_cli(smi):
     return dict(seconds=seconds, first_loss=first, last_loss=last, rows=rows)
 
 
-def phase_train(dev, smi, kernels):
+def phase_train(dev, smi, kernels, batches):
     """Phase 8: kernels 3 and 4 under autograd (8a), res50_coco in float32
     and bf16 and swin_tiny_coco in bf16 at 544, train_bs 8 on
-    custom_dataset/ (8b, 8c), the train CLI (8d). Adds each path's launch
-    counts to `kernels`' launches_by_path through the returned dict."""
+    custom_dataset/ (8b, 8c; `batches` from _train_batches), the train CLI
+    (8d). Adds each path's launch counts to `kernels`' launches_by_path
+    through the returned dict."""
     import torch
     t_phase = time.perf_counter()
     auto = check_train_autograd(dev)
@@ -1854,7 +1870,6 @@ def phase_train(dev, smi, kernels):
                               launches_per_step=TRAIN_LAUNCHES_PER_STEP[k['name']])
             k['backward_ms'] = auto[k['name']][0]['backward_ms']
             k['backward_device_ms'] = auto[k['name']][0]['backward_device_ms']
-    batches = _train_batches(TRAIN_STEPS + 2)
     by_path, numbers = {}, {}
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False      # float32 convolutions in float32
@@ -1865,7 +1880,6 @@ def phase_train(dev, smi, kernels):
             by_path[path], numbers[path] = phase_train_path(dev, name, dtype, batches, smi)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    del batches
     numbers['cli'] = phase_train_cli(smi)
     print(f'train phase: {time.perf_counter() - t_phase:.2f} s')
     return by_path, numbers
@@ -2122,6 +2136,323 @@ def phase_export(dev, smi):
     torch.cuda.empty_cache()
     return {k: launches[k] for k in SWIN_KERNELS}, numbers
 
+# --- phase 10: the flags (--traditional_nms, --save_lincomb, --remat, --backbone_weight)
+
+# The train CLI's run with --backbone_weight and --remat: image size and
+# steps (the log prints its losses at step 10, so 11 steps show one line);
+# the steps of each train_step pair of 10d after its one compared step (2 of
+# them warm-up); the remat step's losses against the plain step's.
+FLAGS_CLI_IMG, FLAGS_CLI_STEPS = 256, 11
+# 10a: the eval CLI's images (two batches: the rate leaves the first out).
+# With random weights every anchor passes the score threshold for each of
+# res50_custom's 4 classes, so greedy NMS takes ~1.7 s an image on the host.
+FLAGS_EVAL_IMAGES = 2 * EVAL_BS
+REMAT_STEPS = 5
+REMAT_LOSS_RTOL = 1e-3
+# 10c: the swin Detector's batch, and the share of the first image's
+# foreground scores above its nms_score_thre (random-init scores are near
+# 1/81: the default 0.05 would pass none, 0.002 all 18525 x 80).
+TRAD_BATCH = 8
+TRAD_PASS = 1e-3
+
+
+def _host_library_line():
+    """Build (or find) csrc/nms.cc's library with g++; the command and its
+    seconds."""
+    from yolact_minimal_torch.ops import _build
+    target = _build.host_target('nms')
+    built = not target.exists()
+    t0 = time.perf_counter()
+    _build.build_host('nms')
+    seconds = time.perf_counter() - t0
+    cmd = ' '.join(_build.host_command('nms', target))
+    return (f'host library: {"built" if built else "found"} {target.name} '
+            f'({seconds:.2f} s): {cmd}')
+
+
+def _traditional_tail_numbers(det, x):
+    """`det`'s raw outputs on x, fetched; per image the (anchor, class) pairs
+    that reach the greedy loop, and the host ms of the whole tail. Returns
+    (raw numpy outputs, candidates, tail ms, the tail's result)."""
+    import torch
+    from yolact_minimal_torch.pipeline import _to_host
+    with torch.inference_mode():
+        raw = _to_host(det._infer_raw(x))
+    cand = [int((raw[0][b][:, 1:] > det.cfg.nms_score_thre).sum()) for b in range(len(x))]
+    t0 = time.perf_counter()
+    tail = det.traditional_tail(*raw)
+    return raw, cand, (time.perf_counter() - t0) * 1e3, tail
+
+
+def phase_flags_eval(dev, smi):
+    """10a: `python -m yolact_minimal_torch.eval --traditional_nms` on phase
+    3c's seeded res50_custom .ckpt at IMG over the first FLAGS_EVAL_IMAGES
+    images of custom_dataset/: exit 0, finite rows; then in this process the
+    counted launches of one eval batch (kernel 1 bypassed), the candidates
+    that reach greedy NMS per image, the host ms of the tail and the batch's
+    img/s up to the tail. Returns the launches."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.data.coco import COCODetection
+    from yolact_minimal_torch.pipeline import Detector, load_detector
+    from yolact_minimal_torch.utils.checkpoint import save_checkpoint
+    from yolact_minimal_torch.utils.weights import to_jax_variables
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(_host_library_line())
+    with tempfile.TemporaryDirectory() as tmp:
+        det = Detector(get_config('res50_custom', img_size=IMG), device=dev, seed=0)
+        ckpt = os.path.join(tmp, 'seeded_res50_custom_0.ckpt')
+        save_checkpoint(ckpt, to_jax_variables(det.model.state_dict()))
+        del det
+        out, seconds = _run_cli('eval', ['--weight', ckpt, '--img_size', str(IMG),
+                                         '--traditional_nms', '--val_num',
+                                         str(FLAGS_EVAL_IMAGES)], root)
+        _check('traditional_nms: True' in out, 'the eval CLI did not take --traditional_nms')
+        rows = _table_rows(out)
+        print(f'10a. eval CLI --traditional_nms, res50_custom {IMG}, the first '
+              f'{FLAGS_EVAL_IMAGES} images of custom_dataset/, float32: exit 0 in '
+              f'{seconds:.2f} s; box row {rows["box"]}, mask row {rows["mask"]}')
+
+        cfg = get_config('res50_custom', mode='val', img_size=IMG, traditional_nms=True,
+                         val_imgs=os.path.join(root, 'custom_dataset', 'images'),
+                         val_ann=os.path.join(root, 'custom_dataset', 'annotations.json'))
+        det = load_detector(ckpt, cfg, device=dev)
+        ds = COCODetection(cfg, mode='val')
+        x = torch.from_numpy(np.stack([ds.get_val(i)['image'] for i in range(EVAL_BS)])).to(dev)
+        counters = _counters('res50_custom')
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        _, cand, tail_ms, (dets, masks_proto, _) = _traditional_tail_numbers(det, x)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in counters.items()}
+        _check(not any(launches.values()), f'the traditional eval path launched {launches}')
+        _check(all(t.device.type == 'cpu' for t in (*dets, masks_proto)),
+               'the traditional Detector returned device tensors')
+        print(f'  one batch of {EVAL_BS} in this process: launches {launches} (kernel 1 bypassed); '
+              f'(anchor, class) pairs reaching greedy NMS per image {cand} of '
+              f'{det.anchors.shape[0]} x {cfg.num_classes - 1}; host tail (greedy NMS, numpy '
+              f'masks, slate) {tail_ms:.3f} ms a batch, {tail_ms / EVAL_BS:.3f} ms an image; '
+              f'forward, fetch and tail {call_ms:.3f} ms, {EVAL_BS / call_ms * 1e3:.2f} img/s '
+              f'before the eval\'s upsample and metric (the CLI\'s own rate leaves out its '
+              f'first batch, and of {FLAGS_EVAL_IMAGES // EVAL_BS} batches the last one queues '
+              f'no tail behind it); valid slots {int(dets.valid.sum())}; on {smi}')
+        del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flags_detect(dev):
+    """10b: the detect CLI with --traditional_nms --save_lincomb on two
+    seeded PNGs with a seeded res50_coco .pth (class 1 raised by 6, so that
+    slots are valid), from a temporary working directory: the drawn images at
+    their input shapes, a lincomb_<name> grid for each, kernel 1 bypassed.
+    Returns the launches."""
+    import os
+    import tempfile
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.detect import main as detect_main
+    from yolact_minimal_torch.pipeline import Detector
+    from yolact_minimal_torch.utils import image_io
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        shapes = _seeded_pngs(os.path.join(tmp, 'images'), 10)
+        det = Detector(get_config('res50_coco', img_size=IMG), device=dev, seed=0)
+        sd = {k: v.cpu() for k, v in det.model.state_dict().items()}
+        sd['prediction_layers.conf_layer.bias'][1::81] += 6.0
+        weight = os.path.join(tmp, 'seeded_res50_coco.pth')
+        torch.save(sd, weight)
+        del det, sd
+        counters = _counters('res50_coco')
+        for fn in counters.values():
+            fn.launches = 0
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            detect_main(['--weight', weight, '--image', os.path.join(tmp, 'images'),
+                         '--img_size', str(IMG), '--traditional_nms', '--save_lincomb'])
+            seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        grids = {}
+        for name, shape in shapes.items():
+            out = image_io.imread(os.path.join(tmp, 'results', 'images', name))
+            _check(out.shape == shape + (3,), f'{name}: drawn image {out.shape}, input {shape}')
+            path = os.path.join(tmp, 'results', 'images', f'lincomb_{name}')
+            _check(os.path.exists(path), f'--save_lincomb wrote no lincomb_{name}')
+            grids[name] = image_io.imread(path).shape
+            # 4 x 8 prototypes of IMG / 4 a side
+            _check(grids[name] == (IMG, 2 * IMG, 3), f'lincomb_{name}: grid {grids[name]}')
+    _check(not any(launches.values()), f'the traditional detect CLI launched {launches}')
+    print(f'10b. detect CLI --traditional_nms --save_lincomb on {len(shapes)} PNGs '
+          f'{list(shapes.values())}: {seconds:.2f} s (model build and warm-up included); drawn '
+          f'images at their input shapes; lincomb grids {grids}; launches {launches}')
+    return launches
+
+
+def phase_flags_swin(dev, smi):
+    """10c: a swin_tiny_coco bf16 Detector with traditional_nms, its score
+    threshold at the (1 - TRAD_PASS) quantile of the first image's
+    foreground scores: with the counters at 0, one call must launch kernels
+    3 and 4 once a block (12 each) and kernel 1 not at all, and its slate
+    must equal the numpy tail on the card's raw outputs. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.pipeline import Detector
+
+    cfg = get_config('swin_tiny_coco', img_size=IMG, compute_dtype='bfloat16',
+                     traditional_nms=True)
+    det = Detector(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(TRAD_BATCH, IMG, IMG, 3, device=dev, generator=g)
+    with torch.inference_mode():
+        scores = det._infer_raw(x[:1])[0][0, :, 1:].float().cpu().numpy()
+    det.cfg = cfg.replace(nms_score_thre=float(np.quantile(scores, 1 - TRAD_PASS)))
+    counters = _counters('swin_tiny_coco')
+    for fn in counters.values():
+        fn.launches = 0
+    recorded = []
+    infer_raw = det._infer_raw
+    det._infer_raw = lambda images: recorded.append(infer_raw(images)) or recorded[-1]
+    t0 = time.perf_counter()
+    dets, masks_proto, proto = det(x)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    det._infer_raw = infer_raw
+    expected = dict(_swin_launches('composed'), suppression_iou_max=0, mask_finalize=0)
+    _check(launches == expected, f'swin traditional path: expected {expected}, got {launches}')
+    from yolact_minimal_torch.pipeline import _to_host
+    tail = det.traditional_tail(*_to_host(recorded[0]))
+    for name, got, want in zip(('ids', 'scores', 'boxes', 'coefs', 'valid', 'masks_proto',
+                                'proto'), (*dets, masks_proto, proto), (*tail[0], *tail[1:])):
+        _check(torch.equal(got, want), f'swin traditional {name}: the slate differs from the '
+                                       f'numpy tail on the card\'s raw outputs')
+    _, cand, tail_ms, _ = _traditional_tail_numbers(det, x)
+    _check(int(dets.valid.sum()) > 0, 'the swin traditional slate is empty')
+    print(f'10c. swin_tiny_coco bf16 {IMG}, batch {TRAD_BATCH}, traditional_nms, nms_score_thre '
+          f'{det.cfg.nms_score_thre:.6f}: launches {launches}; one call {call_ms:.3f} ms '
+          f'(host clock, first call of the Detector); candidates per image {cand}; host tail '
+          f'{tail_ms:.3f} ms; valid slots {int(dets.valid.sum())}; slate equals the numpy '
+          f'tail on the card\'s raw outputs; on {smi}')
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flags_remat(dev, smi, batches):
+    """10d: one train_step with and without cfg.remat for res50_coco and
+    swin_tiny_coco, bf16, IMG/b TRAIN_BS, from the seed-0 init on the same
+    batch (the step generator is seeded from (seed, step), so the draws are
+    the same): the remat step's four losses within REMAT_LOSS_RTOL of the
+    plain step's; then REMAT_STEPS more steps each (2 warm-up), ms a step on
+    the host clock to a synchronize, peak device memory, and the launches of
+    kernels 3 and 4 a step. Returns {path: launches}."""
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    by_path, rows = {}, []
+    for name in ('res50_coco', 'swin_tiny_coco'):
+        first = {}
+        for use_remat in (False, True):
+            cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS,
+                             compute_dtype='bfloat16', remat=use_remat)
+            state = create_train_state(cfg, dev, seed=0)
+            counters = _counters(name)
+            for fn in counters.values():
+                fn.launches = 0
+            first[use_remat] = [float(t) for t in train_step(state, batches[0])]
+            for batch in batches[1:3]:                          # warm-up
+                train_step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for i in range(REMAT_STEPS - 2):
+                train_step(state, batches[3 + i % (len(batches) - 3)])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / (REMAT_STEPS - 2) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            launches = {k: fn.launches for k, fn in counters.items()}
+            steps = 1 + REMAT_STEPS
+            path = f'{name}/train_{"remat" if use_remat else "plain"}_bfloat16'
+            by_path[path] = launches
+            if name.startswith('swin'):
+                k = 2 if use_remat else 1
+                want = {'window_attention': 12 * k * steps, 'swin_mlp': k * steps}
+                _check(all(launches[n] == c for n, c in want.items()),
+                       f'{path}: expected {want} launches over {steps} steps, got {launches}')
+            rows.append((path, step_ms, peak, launches, steps))
+            print(f'10d. {path} {IMG}/b{TRAIN_BS}: {step_ms:.3f} ms a step ({REMAT_STEPS - 2} '
+                  f'steps after 3, host clock to a synchronize), {TRAIN_BS / step_ms * 1e3:.2f} '
+                  f'img/s, peak device memory {peak:.2f} GiB; launches {launches} over {steps} '
+                  f'steps; first step losses {first[use_remat]}; on {smi}')
+            del state
+            torch.cuda.empty_cache()
+        for a, b in zip(first[True], first[False]):
+            _check(math.isfinite(a) and abs(a - b) <= REMAT_LOSS_RTOL * abs(b),
+                   f'{name}: remat losses {first[True]} against plain {first[False]}')
+        print(f'  {name}: the remat step\'s four losses within {REMAT_LOSS_RTOL} relative of the '
+              f'plain step\'s')
+    return by_path
+
+
+def phase_flags_train_cli(dev, smi):
+    """10e: `python -m yolact_minimal_torch.train --backbone_weight
+    seeded_backbone.pth --remat` on res50_custom at FLAGS_CLI_IMG for
+    FLAGS_CLI_STEPS steps from a temporary directory: the 'Backbone is
+    initiated' line and finite logged losses."""
+    import os
+    import tempfile
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.pipeline import Detector
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = [os.path.join(root, p) for p in ('custom_dataset/images',
+                                            'custom_dataset/annotations.json')]
+    with tempfile.TemporaryDirectory() as cwd:
+        det = Detector(get_config('res50_custom', img_size=FLAGS_CLI_IMG), device='cpu', seed=7)
+        backbone = {k[len('backbone.'):]: v for k, v in det.model.state_dict().items()
+                    if k.startswith('backbone.')}
+        weight = os.path.join(cwd, 'seeded_backbone.pth')
+        torch.save(backbone, weight)
+        del det
+        out, seconds = _run_cli('train', [
+            '--cfg', 'res50_custom', '--img_size', str(FLAGS_CLI_IMG), '--train_bs', '8',
+            '--max_steps', str(FLAGS_CLI_STEPS), '--num_workers', str(TRAIN_WORKERS),
+            '--backbone_weight', weight, '--remat', '--train_imgs', data[0],
+            '--train_ann', data[1], '--val_imgs', data[0], '--val_ann', data[1]], cwd)
+    _check(f'Backbone is initiated with {weight}.' in out,
+           f'the train CLI did not read the backbone:\n{out[-2000:]}')
+    _check('remat: True' in out, 'the train CLI did not take --remat')
+    logged = [tuple(float(x) for x in m) for m in re.findall(
+        r'l_class: (\S+) \| l_box: (\S+) \| l_mask: (\S+) \| l_semantic: (\S+) \|', out)]
+    _check(logged and all(math.isfinite(v) for l in logged for v in l),
+           f'the train CLI logged no finite losses:\n{out[-2000:]}')
+    print(f'10e. train CLI res50_custom {FLAGS_CLI_IMG}/b8 --backbone_weight (seeded, '
+          f'{len(backbone)} tensors) --remat, {FLAGS_CLI_STEPS} steps: {seconds:.2f} s; printed '
+          f'"Backbone is initiated"; logged losses {logged}; on {smi}')
+
+
+def phase_flags(dev, smi, batches):
+    """Phase 10: the flags, the remat steps on phase 8's `batches`. Returns
+    {path: launches}."""
+    t_phase = time.perf_counter()
+    by_path = {'res50_custom/eval_traditional': phase_flags_eval(dev, smi),
+               'res50_coco/cli_traditional': phase_flags_detect(dev),
+               'swin_tiny_coco/traditional': phase_flags_swin(dev, smi)}
+    by_path.update(phase_flags_remat(dev, smi, batches[:1 + REMAT_STEPS]))
+    phase_flags_train_cli(dev, smi)
+    print(f'flags phase: {time.perf_counter() - t_phase:.2f} s')
+    return by_path
+
 
 def main():
     import torch
@@ -2154,9 +2485,12 @@ def main():
             phase_stage_forms(det, dev)
         del det, images, composed_out
         torch.cuda.empty_cache()
-    train_paths, _ = phase_train(dev, smi, kernels)
+    batches = _train_batches(max(TRAIN_STEPS + 2, 1 + REMAT_STEPS))
+    train_paths, _ = phase_train(dev, smi, kernels, batches)
     by_path.update(train_paths)
     by_path[EXPORT_PATH], _ = phase_export(dev, smi)
+    by_path.update(phase_flags(dev, smi, batches))
+    del batches
     # `launches` is the count on the path that runs the kernel
     own_path = {'suppression_iou_max': 'res50_coco', 'mask_finalize': 'res50_coco',
                 'window_attention': 'swin_tiny_coco/composed', 'swin_mlp': 'swin_tiny_coco/composed',

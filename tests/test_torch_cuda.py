@@ -711,6 +711,81 @@ def test_res50_near_identity_train_step_on_the_card_equals_the_cpu(card):
         assert not over, f'{what}: {over}'
 
 
+def test_traditional_detector_on_the_card_equals_the_cpu_tail(card):
+    """--traditional_nms on the card: the forward and decode there, then the
+    host tail; the slate equals the tail of a CPU Detector on the same raw
+    outputs, and kernel 1 is not launched."""
+    from yolact_minimal_torch.pipeline import Detector, _to_host
+    cfg = get_config('res50_coco', img_size=128, traditional_nms=True, nms_score_thre=0.012)
+    det = Detector(cfg, seed=0)
+    cpu = Detector(cfg, det.model.state_dict(), device='cpu')
+    images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    recorded, infer_raw = [], det._infer_raw
+    det._infer_raw = lambda x: recorded.append(infer_raw(x)) or recorded[-1]
+    s0 = suppression_iou_max.launches
+    dets, masks_proto, proto = det(images)
+    assert suppression_iou_max.launches == s0
+    assert int(dets.valid.sum()) > 0
+    tail = cpu.traditional_tail(*_to_host(recorded[0]))
+    for got, want in zip((*dets, masks_proto, proto), (*tail[0], *tail[1:])):
+        assert got.device.type == 'cpu' and torch.equal(got, want)
+
+
+# A remat step against the plain step on the card, per part of the network
+# in L2: float32 within 1e-4, the card-against-CPU tolerance of the
+# near-identity res50 step (measured 4.5e-7, as two plain steps differ:
+# the bilinear backward sums with atomics); bf16 within 2^-7, one bf16 ulp,
+# since a float32-sized change flips roundings that move the backbone's
+# gradient by ~5e-3 (measured 4.6e-3 against plain in two runs and 0 in a
+# third, and 4.85e-3 between two plain steps run before and after a remat
+# one).
+REMAT_PART_TOL = {'float32': 1e-4, 'bfloat16': 2.0 ** -7}
+
+
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_remat_swin_step_on_the_card_equals_the_plain_step(card, dtype):
+    """A swin_tiny_custom step at 128, train_bs 2, with cfg.remat against
+    the plain step from the same seeded init on the same batch (the step
+    generator seeded alike, drop_path on): the losses within 1e-4 relative,
+    each gradient within 1e-2 of its norm and each part's (backbone, fpn,
+    ...) within REMAT_PART_TOL of its norm in L2; kernels 3 and 4 launch
+    twice as often (the recompute). And a res50 remat step's BatchNorm
+    counters rise by one."""
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    _, batch = _res50_train_case()
+    runs = []
+    for remat in (False, True):
+        cfg = get_config('swin_tiny_custom', mode='train', img_size=128, max_gt=4, train_bs=2,
+                         compute_dtype=dtype, remat=remat)
+        state = create_train_state(cfg, card, seed=0)
+        w0, m0 = window_attention.launches, mlp_block.launches
+        losses = train_step(state, batch)
+        torch.cuda.synchronize()
+        runs.append(([float(t) for t in losses],
+                     {k: p.grad.detach().cpu().float() for k, p in state.model.named_parameters()},
+                     (window_attention.launches - w0, mlp_block.launches - m0)))
+    (plain, grads, plain_launches), ours = runs
+    assert plain_launches == (12, 1) and ours[2] == (24, 2)
+    np.testing.assert_allclose(ours[0], plain, rtol=1e-4)
+    parts = {}
+    for k, ref in grads.items():
+        gap, norm = (ours[1][k] - ref).norm().item(), ref.norm().item()
+        assert gap <= 1e-2 * norm, f'gradient {k}: {gap:.3g} of {norm:.3g}'
+        sums = parts.setdefault(k.split('.')[0], np.zeros(2))
+        sums += (gap * gap, norm * norm)
+    print(f'{dtype}: remat against plain, per part:',
+          {part: f'{np.sqrt(g2 / n2):.3g}' for part, (g2, n2) in parts.items()})
+    over = {part: np.sqrt(g2 / n2) for part, (g2, n2) in parts.items()
+            if np.sqrt(g2) > REMAT_PART_TOL[dtype] * np.sqrt(n2)}
+    assert not over, over
+    cfg, batch = _res50_train_case()
+    state = create_train_state(cfg.replace(remat=True, compute_dtype=dtype), card, seed=0)
+    train_step(state, batch)
+    counts = {int(v) for k, v in state.model.state_dict().items()
+              if k.endswith('num_batches_tracked')}
+    assert counts == {1}
+
+
 # --- the registered operators and an exported program ------------------------------
 
 MIXED = ('whole', 'attn_block', 'composed', 'composed')

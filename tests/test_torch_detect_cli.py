@@ -2,7 +2,8 @@
 `val_aug` (equal with cv2, its F.interpolate fallback without), the numpy
 blend and rectangles of `draw_img` against cv2's, the cv2 and PIL image
 paths, `detect.main` on the CPU with cv2, then cv2 and PIL, hidden, and its
-`--cutout` files against those of the JAX `draw_img`."""
+`--cutout` files against those of the JAX `draw_img`; `draw_lincomb` and the
+CLI's `--save_lincomb --traditional_nms` against the JAX `draw_lincomb`."""
 import sys
 
 import cv2
@@ -186,3 +187,49 @@ def test_image_io_backends_agree(tmp_path, monkeypatch):
     for call in (image_io.backend, lambda: image_io.imread(path)):
         with pytest.raises(ImportError, match='neither cv2 nor PIL imports'):
             call()
+
+
+def test_draw_lincomb_equals_jax(tmp_path):
+    from yolact_minimal_tpu.utils import visualize as jax_visualize
+    rng = np.random.RandomState(5)
+    proto = np.maximum(rng.normal(size=(20, 24, 32)), 0).astype(np.float32)
+    proto[:, :, 3] = 0.0                        # a dead prototype: its max is 0
+    coefs = np.tanh(rng.normal(size=(4, 32))).astype(np.float32)
+    visualize.draw_lincomb(proto, coefs, 'x.png', out_dir=str(tmp_path / 'ours'))
+    jax_visualize.draw_lincomb(proto, coefs, 'x.png', out_dir=str(tmp_path / 'jax'))
+    ours = cv2.imread(str(tmp_path / 'ours' / 'lincomb_x.png'))
+    assert ours.shape == (80, 192, 3)
+    assert np.array_equal(ours, cv2.imread(str(tmp_path / 'jax' / 'lincomb_x.png')))
+
+
+def test_detect_cli_save_lincomb_with_traditional_nms(tmp_path, monkeypatch):
+    """--traditional_nms --save_lincomb on one PNG: the drawn image at its
+    shape and `lincomb_one.png` pixel-equal to the JAX `draw_lincomb` on the
+    same prototypes and kept coefs; without cv2 the flag stops the CLI before
+    the detector is built."""
+    from yolact_minimal_tpu.utils import visualize as jax_visualize
+    from yolact_minimal_torch import detect
+    images = tmp_path / 'images'
+    images.mkdir()
+    img = np.random.RandomState(3).randint(0, 256, (48, 64, 3)).astype(np.uint8)
+    image_io.imwrite(images / 'one.png', img)
+    weight = _weights(tmp_path)
+    calls = []
+
+    def both(proto, coefs, img_name):
+        calls.append(len(coefs))
+        jax_visualize.draw_lincomb(proto, coefs, img_name, out_dir=str(tmp_path / 'jax'))
+        visualize.draw_lincomb(proto, coefs, img_name)
+    monkeypatch.setattr(detect, 'draw_lincomb', both)
+    monkeypatch.chdir(tmp_path)
+    detect.main(['--weight', str(weight), '--image', str(images), '--device', 'cpu',
+                 '--img_size', '64', '--traditional_nms', '--save_lincomb'])
+    out_dir = tmp_path / 'results' / 'images'
+    assert image_io.imread(out_dir / 'one.png').shape == img.shape
+    assert calls and calls[0] > 0
+    assert np.array_equal(cv2.imread(str(out_dir / 'lincomb_one.png')),
+                          cv2.imread(str(tmp_path / 'jax' / 'lincomb_one.png')))
+    _hide(monkeypatch, 'cv2')
+    with pytest.raises(SystemExit, match='--save_lincomb needs cv2'):
+        detect.main(['--weight', 'missing_res50_coco.pth', '--image', str(images),
+                     '--device', 'cpu', '--save_lincomb'])

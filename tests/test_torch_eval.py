@@ -327,9 +327,8 @@ def test_cli_runs_on_the_cpu(seeded_ckpt, tmp_path, monkeypatch, capsys, coco_ap
 
 def test_cli_stops_where_the_port_cannot_follow(monkeypatch):
     base = ['--weight', 'missing_res50_custom.ckpt']
-    for flag in (['--traditional_nms'], ['--data_parallel', '2']):
-        with pytest.raises(SystemExit, match='not ported'):
-            port_eval.main(base + flag)
+    with pytest.raises(SystemExit, match='not ported'):
+        port_eval.main(base + ['--data_parallel', '2'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             port_eval.main(base)

@@ -24,7 +24,8 @@ def test_port_imports_no_jax():
                    'ops.attn_block', 'ops.swin_block', 'models.swin', 'eval',
                    'utils.msgpack', 'utils.checkpoint', 'data.coco', 'utils.cocoeval',
                    'train', 'train_state', 'ops.losses', 'ops.matching', 'data.augment',
-                   'ops.nms_numpy', 'deploy', 'export', 'detect_with_export'):
+                   'ops.nms_numpy', 'deploy', 'export', 'detect_with_export',
+                   'ops.traditional_nms', 'models.remat'):
         assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'
@@ -36,6 +37,25 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_host_nms_library_builds_at_first_use_under_build_never_native():
+    """Importing ops.traditional_nms builds and loads nothing (and no cv2);
+    the first call loads the library g++ wrote under build/torch_host/."""
+    code = (
+        'import sys\n'
+        'from yolact_minimal_torch.ops import _build, traditional_nms as t\n'
+        'assert not _build._loaded and "cv2" not in sys.modules\n'
+        'import numpy as np\n'
+        'b = np.array([[0, 0, 9, 9], [1, 1, 9, 9], [20, 20, 30, 30]], np.float32)\n'
+        'assert t.greedy_nms(b, np.array([0.9, 0.8, 0.7], np.float32), 0.5).tolist() == [0, 2]\n'
+        'print(_build._loaded["nms.cc"]._name)\n')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lib = Path(proc.stdout.strip())
+    assert lib.parent == ROOT / 'build' / 'torch_host' and lib.suffix == '.so'
+    assert (ROOT / 'native') not in lib.parents
 
 
 def test_chip_smoke_imports_no_jax():

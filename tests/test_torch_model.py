@@ -131,10 +131,10 @@ def test_random_init_is_seeded():
 @pytest.mark.parametrize('name', sorted(JAX_REGISTRY))
 def test_config_copy_matches_jax(name):
     # every field the port keeps has the JAX package's value; the JAX-only
-    # knobs (remat, fused_window_attn) are the only fields left out
+    # knob fused_window_attn is the only field left out
     assert set(CONFIG_REGISTRY) == set(JAX_REGISTRY)
     ours, ref = vars(get_config(name, img_size=256)), vars(jax_config(name, img_size=256))
-    assert set(ref) - set(ours) == {'remat', 'fused_window_attn'}
+    assert set(ref) - set(ours) == {'fused_window_attn'}
     assert set(ours) <= set(ref)
     for k, v in ours.items():
         assert v == ref[k], k

@@ -13,7 +13,8 @@
 - the same res50 step, well conditioned: each bottleneck's last BatchNorm
   scale at 0.02 of its init, so each block starts near the identity, and
   the JAX BatchNorm's variance taken in two passes. Each part of the
-  network's gradient and update is held at 1e-4, each tensor at 1e-2;
+  network's gradient and update is held at 1e-4, each tensor at 1e-2; once
+  more with cfg.remat on both sides;
 - 24 res50 steps and 12 swin AdamW steps at drop_path_rate 0.2 lower the
   loss (the JAX tests' windowed rule);
 - a port checkpoint resumes in the JAX `restore_opt_state` with equal
@@ -297,10 +298,20 @@ def test_res50_near_identity_step_equals_jax():
     NEAR_IDENTITY, carried to the JAX step by `to_jax_variables`; the JAX
     ResNet built with two-pass BatchNorm variance. The same batch as the
     step above."""
+    _near_identity_step(remat=False)
+
+
+def test_res50_near_identity_remat_step_equals_jax():
+    """The same step with cfg.remat on both sides: the port's checkpointed
+    Bottlenecks against the JAX package's nn.remat ones."""
+    _near_identity_step(remat=True)
+
+
+def _near_identity_step(remat: bool):
     cfg = get_config('res50_custom', mode='train', img_size=128, max_gt=4, train_bs=2,
-                     base_lr=0.1)
+                     base_lr=0.1, remat=remat)
     jcfg = jax_get_config('res50_custom', mode='train', img_size=128, max_gt=4, train_bs=2,
-                          base_lr=0.1)
+                          base_lr=0.1, remat=remat)
     state = create_train_state(cfg, 'cpu', seed=0)
     with torch.no_grad():
         for name, p in state.model.named_parameters():

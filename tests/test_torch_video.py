@@ -6,7 +6,9 @@ frame's slate equals that frame detected alone by `detect.detect_one`: the
 same ids, scores within 1e-5 (the driver's numpy tail and the device
 postprocess decode and sort with other libraries, in float32). The JAX
 package's video test is slow; this one holds the port to its own
-single-image path, which the other tests hold to JAX."""
+single-image path, which the other tests hold to JAX. The written file's
+frame rate is the input's rounded, as the JAX loops write it, and the
+exported-artifact CLI writes its file under `--real_time` too."""
 import contextlib
 import io
 
@@ -19,7 +21,7 @@ from yolact_minimal_torch import detect, detect_with_export
 from yolact_minimal_torch.config import get_config
 from yolact_minimal_torch.data.augment import val_aug
 from yolact_minimal_torch.pipeline import Detector, load_detector
-from yolact_minimal_torch.utils import visualize
+from yolact_minimal_torch.utils import video, visualize
 from yolact_minimal_torch.utils.checkpoint import save_checkpoint
 from yolact_minimal_torch.utils.weights import to_jax_variables
 
@@ -118,3 +120,39 @@ def test_video_needs_cv2_before_the_detector_is_built(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match='video input needs cv2'):
         detect_with_export.main(['--artifact', 'missing.pt2', '--video', 'in.mp4',
                                  '--device', 'cpu'])
+
+
+def test_video_writer_rounds_the_frame_rate(tmp_path):
+    """A clip written by cv2 at 29.97 fps: the JAX loops hand
+    round(CAP_PROP_FPS) to the writer, and so does run_video."""
+    rng = np.random.RandomState(1)
+    src = str(tmp_path / 'ntsc.mp4')
+    writer = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*'mp4v'), 29.97, SIZE)
+    for _ in range(3):
+        writer.write((rng.rand(SIZE[1], SIZE[0], 3) * 255).astype(np.uint8))
+    writer.release()
+    vid = cv2.VideoCapture(src)
+    rate = vid.get(cv2.CAP_PROP_FPS)
+    vid.release()
+    assert rate != round(rate)                  # the input's rate is not an integer
+    frames, _ = video.run_video(src, str(tmp_path / 'out'), 2, IMG, lambda images: None,
+                                lambda result, j, frame, fps: frame)
+    out = cv2.VideoCapture(str(tmp_path / 'out' / 'ntsc.mp4'))
+    assert frames == 3 and out.get(cv2.CAP_PROP_FPS) == round(rate) == 30
+    out.release()
+
+
+def test_export_video_real_time_writes_its_file(clip, monkeypatch):
+    """--real_time draws the frame rate on each frame and still writes
+    results/export_videos/<name>, as the JAX detect_with_export.py does (no
+    window)."""
+    root, _, artifact, alone = clip
+    sub = root / 'real_time'
+    sub.mkdir()
+    monkeypatch.chdir(sub)
+    monkeypatch.setattr(cv2, 'imshow', None)    # a window would fail on a machine without one
+    detect_with_export.main(['--artifact', str(artifact), '--video', str(root / 'in.mp4'),
+                             '--real_time', '--device', 'cpu'])
+    out = cv2.VideoCapture(str(sub / 'results' / 'export_videos' / 'in.mp4'))
+    assert round(out.get(cv2.CAP_PROP_FRAME_COUNT)) == N_FRAMES
+    out.release()

@@ -127,6 +127,10 @@ class Config:
 
     # numerics: parameters are kept in f32; the network runs in this dtype.
     compute_dtype: str = 'float32'           # float32 | bfloat16
+    # Recompute each backbone block in the backward pass (training only):
+    # activation memory drops to about one block's, for one more forward of
+    # the backbone.
+    remat: bool = False
 
     def __post_init__(self):
         if self.img_size % 32:

@@ -1,8 +1,8 @@
 """Detection CLI over a folder of images or a video, with visualization.
 
     python -m yolact_minimal_torch.detect --weight weights/x_res50_coco.pth \
-        (--image DIR | --video V [--video_bs 8] [--real_time]) [--cfg res50_coco] \
-        [--device cuda|cpu]
+        (--image DIR [--save_lincomb] | --video V [--video_bs 8] [--real_time]) \
+        [--traditional_nms] [--cfg res50_coco] [--device cuda|cpu]
 
 Writes the drawn images to results/images/ and a drawn video to
 results/videos/ (with --real_time it is shown in a window instead). The weight
@@ -11,7 +11,9 @@ The images come from `COCODetection(cfg, 'detect')`, read and written with cv2
 where it imports, else PIL (utils/image_io.py); video frames go through the
 device `video_bs` at a time (utils/video.py) and need cv2. Without the
 library that the input needs the CLI stops before the detector is built.
---traditional_nms and --save_lincomb are not ported yet.
+--traditional_nms runs greedy per-class NMS on the host (pipeline.py);
+--save_lincomb also writes results/images/lincomb_<name>, a grid of the
+prototypes, for each image with a detection (needs cv2).
 """
 from __future__ import annotations
 
@@ -21,20 +23,28 @@ import os.path as osp
 import time
 
 from yolact_minimal_torch.config import cfg_name_from_weight, get_config
+from yolact_minimal_torch.data import augment
 from yolact_minimal_torch.data.coco import COCODetection
 from yolact_minimal_torch.pipeline import load_detector
 from yolact_minimal_torch.utils import image_io, video
-from yolact_minimal_torch.utils.visualize import draw_img
+from yolact_minimal_torch.utils.visualize import draw_img, draw_lincomb
+
+NO_CV2_LINCOMB = '--save_lincomb needs cv2: the grid is coloured with cv2.applyColorMap'
 
 
 def detect_one(detector, cfg, img_normed, img_origin, img_name=None):
     """One image, normalized by `val_aug` and as read (BGR) -> the image with
     its detections drawn. With
     `cfg.cutout`, the cutouts are written as `<img_name>_total_obj.jpg` and
-    `<img_name>_<i>.jpg` under results/images/."""
+    `<img_name>_<i>.jpg` under results/images/; with `cfg.save_lincomb`,
+    `lincomb_<img_name>` where a slot is valid."""
     h, w = img_origin.shape[:2]
-    dets, masks_proto, _ = detector(img_normed[None])
+    dets, masks_proto, proto = detector(img_normed[None])
     det0 = type(dets)(*(x[0] for x in dets))
+    if cfg.save_lincomb and img_name:
+        valid = det0.valid.cpu().numpy()
+        if valid.any():
+            draw_lincomb(proto[0].cpu().numpy(), det0.coefs.cpu().numpy()[valid], img_name)
     ids, scores, boxes, masks = detector.postprocess_host(
         det0, masks_proto[0], h, w, visual_thre=cfg.visual_thre)
     return draw_img(ids, scores, boxes, masks, img_origin, cfg, img_name=img_name)
@@ -78,6 +88,10 @@ def main(argv=None):
     parser.add_argument('--hide_bbox', action='store_true')
     parser.add_argument('--hide_score', action='store_true')
     parser.add_argument('--cutout', action='store_true')
+    parser.add_argument('--save_lincomb', action='store_true',
+                        help='Also write a grid of the prototypes for each image (needs cv2).')
+    parser.add_argument('--traditional_nms', action='store_true',
+                        help='Greedy per-class NMS on the host instead of fast NMS.')
     parser.add_argument('--no_crop', action='store_true')
     parser.add_argument('--visual_thre', default=0.3, type=float)
     args = parser.parse_args(argv)
@@ -94,6 +108,8 @@ def main(argv=None):
             video.import_cv2()
         else:
             library = image_io.backend()
+            if args.save_lincomb:
+                augment.import_cv2(NO_CV2_LINCOMB)
     except ImportError as e:
         raise SystemExit(str(e)) from None
     if args.video:

@@ -10,7 +10,8 @@ do: no model is built and `models/` is not imported. Chunks are the
 artifact's batch, the last one padded. While the program runs on one chunk a
 reader thread decodes and `val_aug`s the next and a writer thread
 postprocesses and draws the previous one. Drawn images go to
-results/export_images/, a drawn video to results/export_videos/. Images are
+results/export_images/, a drawn video to results/export_videos/ (with
+--real_time too, which draws the frame rate on each frame). Images are
 read and written with cv2 or PIL (utils/image_io.py); the postprocess's mask
 resize and video need cv2.
 """
@@ -46,7 +47,7 @@ def main(argv=None):
     p.add_argument('--hide_score', action='store_true')
     p.add_argument('--no_crop', action='store_true')
     p.add_argument('--real_time', action='store_true',
-                   help='Show the video in a window instead of writing it.')
+                   help='Draw the frame rate on each video frame.')
     p.add_argument('--device', type=str, default='cuda', choices=('cuda', 'cpu'))
     args = p.parse_args(argv)
     if (args.image is None) == (args.video is None):
@@ -87,13 +88,13 @@ def main(argv=None):
                         img_name=img_name, fps=fps, out_dir=IMAGE_DIR)
 
     if args.video:
-        out_dir = None if args.real_time else VIDEO_DIR
-        frames, fps = video.run_video(args.video, out_dir, bs, cfg.img_size, run_chunk,
+        # the file is written with or without --real_time, as the JAX
+        # detect_with_export.py does; --real_time only adds the fps overlay
+        frames, fps = video.run_video(args.video, VIDEO_DIR, bs, cfg.img_size, run_chunk,
                                       lambda outs, j, frame, fps: postprocess_one(
                                           outs, j, frame, fps=fps))
-        if out_dir is not None:
-            print(f'Finished, {frames} frames at {fps:.2f} fps after the first batch, saved in: '
-                  f'{osp.join(out_dir, osp.basename(args.video))}')
+        print(f'Finished, {frames} frames at {fps:.2f} fps after the first batch, saved in: '
+              f'{osp.join(VIDEO_DIR, osp.basename(args.video))}')
         return
 
     paths = sorted(glob.glob(osp.join(args.image, '*.jpg')) +

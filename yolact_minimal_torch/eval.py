@@ -1,19 +1,20 @@
 """Evaluation CLI: COCO-style box and mask mAP.
 
     python -m yolact_minimal_torch.eval --weight W [--img_size 544]
-        [--val_num N] [--val_bs B] [--coco_api] [--strict] [--cfg NAME]
-        [--val_imgs DIR] [--val_ann FILE] [--device cuda|cpu]
+        [--val_num N] [--val_bs B] [--coco_api] [--strict] [--traditional_nms]
+        [--cfg NAME] [--val_imgs DIR] [--val_ann FILE] [--device cuda|cpu]
 
 W is a `.ckpt` that the JAX package wrote or a reference-format `.pth`; the
 config name is read from its file name unless --cfg gives it. The CLI
 prints the table that the JAX package's eval.py prints for the same weights
 and images. Images go to the device in batches of cfg.val_bs (the tail
 padded with its last image, which is not scored); the network, decode and
-NMS run there, and the host upsamples each image's masks and scores it.
+NMS run there, and the host upsamples each image's masks and scores it. With
+--traditional_nms the NMS and the masks run on the host (pipeline.py).
 
 It needs cv2: polygon annotations are rasterized with cv2.fillPoly. Without
-cv2 it stops before the detector is built. --traditional_nms and
---data_parallel are not ported yet.
+cv2 it stops before the detector is built. --data_parallel is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -60,13 +61,16 @@ def _dispatch(detector, imgs: np.ndarray):
     """Queue one batch on the detector's device, and behind it the copy of
     its slate and masks_proto to the host. Returns (Detections, masks_proto,
     event): on the card the tensors are pinned host buffers that are ready
-    once the event has completed; on the CPU the event is None."""
+    once the event has completed; on the CPU, or where the detector hands
+    back host tensors already (--traditional_nms), the event is None."""
     images = torch.from_numpy(imgs)
     if detector.device.type != 'cuda':
         dets, masks_proto, _ = detector(images)
         return dets, masks_proto, None
     images = images.pin_memory().to(detector.device, non_blocking=True)
     dets, masks_proto, _ = detector(images)
+    if masks_proto.device.type == 'cpu':
+        return dets, masks_proto, None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
             for t in (*dets, masks_proto)]
     event = torch.cuda.Event()
@@ -174,7 +178,8 @@ def main(argv=None):
     parser.add_argument('--coco_api', action='store_true')
     parser.add_argument('--strict', action='store_true',
                         help='Stop on crowd-only val images instead of skipping them.')
-    parser.add_argument('--traditional_nms', action='store_true', help='Not ported yet.')
+    parser.add_argument('--traditional_nms', action='store_true',
+                        help='Greedy per-class NMS on the host instead of fast NMS.')
     parser.add_argument('--cfg', type=str, default=None,
                         help='Override config name (else parsed from weight).')
     parser.add_argument('--data_parallel', type=int, default=0, help='Not ported yet.')
@@ -184,8 +189,6 @@ def main(argv=None):
                         help='Override the validation annotation json.')
     parser.add_argument('--device', type=str, default='cuda', choices=('cuda', 'cpu'))
     args = parser.parse_args(argv)
-    if args.traditional_nms:
-        raise SystemExit('--traditional_nms is not ported to yolact_minimal_torch yet')
     if args.data_parallel:
         raise SystemExit('--data_parallel is not ported to yolact_minimal_torch yet')
 
@@ -197,7 +200,8 @@ def main(argv=None):
         overrides['val_ann'] = args.val_ann
     cfg = get_config(name, mode='val', img_size=args.img_size,
                      val_num=args.val_num, coco_api=args.coco_api,
-                     strict=args.strict, **overrides)
+                     strict=args.strict, traditional_nms=args.traditional_nms,
+                     **overrides)
     cfg.print_cfg()
     try:        # before the detector is built
         image_io.backend()

@@ -7,7 +7,9 @@ both. Module names follow the reference state_dict
 (`layers.{stage}.{block}.conv1`, `downsample.0/1`).
 
 In training mode BatchNorm normalizes with the batch statistics and updates
-its running statistics by flax's rule (`BatchNorm2d`).
+its running statistics by flax's rule (`BatchNorm2d`). With `remat` each
+Bottleneck is recomputed in the backward (`models/remat.py`); the stem stays
+outside, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,21 +19,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolact_minimal_torch.models import remat as _remat
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose training-mode update of the running statistics
     is flax's (momentum 0.9): running = 0.9 * running + 0.1 * batch, with the
     BIASED batch variance, where nn.BatchNorm2d takes the unbiased one. The
-    output and the eval mode are nn.BatchNorm2d's."""
+    output and the eval mode are nn.BatchNorm2d's. The backward's recompute
+    of a rematerialized block leaves the statistics as the forward left
+    them."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-            self.running_var.mul_(0.9).add_(var, alpha=0.1)
-            self.num_batches_tracked.add_(1)
+        if not _remat.recomputing():
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+                self.running_var.mul_(0.9).add_(var, alpha=0.1)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
@@ -61,10 +68,12 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Returns (C2, C3, C4, C5): channels (256, 512, 1024, 2048) at strides
-    (4, 8, 16, 32)."""
+    (4, 8, 16, 32). `remat`: each Bottleneck is recomputed in the backward
+    when training with grad enabled."""
 
-    def __init__(self, layers: Sequence[int]):
+    def __init__(self, layers: Sequence[int], remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.layers = nn.ModuleList()
@@ -85,7 +94,9 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
+        remat = _remat.active(self, self.remat)
         for stage in self.layers:
-            x = stage(x)
+            for block in stage:
+                x = _remat.run(block, x) if remat else block(x)
             outs.append(x)
         return tuple(outs)

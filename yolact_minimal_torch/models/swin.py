@@ -34,7 +34,9 @@ JAX package does: kernel 3 and, in blocks without stochastic depth, kernel
 Stochastic depth (`drop_path`, rates by linspace to `drop_path_rate` over the
 12 blocks) draws one keep bit a sample from the generator the forward is
 given; a block with a nonzero rate runs its MLP half in plain ops, as the
-JAX block does.
+JAX block does. With `remat` each block is recomputed in the backward
+(`models/remat.py`, which replays its drop_path draws); the patch embed,
+PatchMerging and the output norms stay outside, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolact_minimal_torch.models import remat as _remat
 from yolact_minimal_torch.ops.attn_block import attn_block
 from yolact_minimal_torch.ops.swin_block import swin_block
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
@@ -359,8 +362,10 @@ class SwinStage(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
-                 fused_whole: bool = False, drop_path_rates: Sequence[float] = ()):
+                 fused_whole: bool = False, drop_path_rates: Sequence[float] = (),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype,
@@ -370,8 +375,9 @@ class SwinStage(nn.Module):
         self.downsample = PatchMerging(dim, dtype) if downsample else None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        remat = _remat.active(self, self.remat)
         for block in self.blocks:
-            x = block(x, generator)
+            x = _remat.run(block, x, generator) if remat else block(x, generator)
         return x, (x if self.downsample is None else self.downsample(x))
 
 
@@ -387,13 +393,15 @@ class SwinTiny(nn.Module):
     192, 384, 768 channels at strides 4/8/16/32) in the compute dtype;
     outputs 1-3 are LayerNormed. `block_forms` is one of `FORMS` for every
     stage, or one per stage. `drop_path_rate` is the last block's stochastic
-    depth in training; block i of all 12 gets linspace(0, rate, 12)[i]."""
+    depth in training; block i of all 12 gets linspace(0, rate, 12)[i].
+    `remat`: each block is recomputed in the backward when training with
+    grad enabled."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  dtype: torch.dtype = torch.float32,
                  block_forms: Union[str, Sequence[str]] = 'composed',
-                 drop_path_rate: float = 0.2):
+                 drop_path_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(embed_dim)
@@ -402,7 +410,7 @@ class SwinTiny(nn.Module):
         self.layers = nn.ModuleList(
             SwinStage(embed_dim * 2 ** i, depth, num_heads[i],
                       downsample=i < len(depths) - 1, dtype=dtype,
-                      drop_path_rates=rates[starts[i]:starts[i] + depth])
+                      drop_path_rates=rates[starts[i]:starts[i] + depth], remat=remat)
             for i, depth in enumerate(depths))
         for i in (1, 2, 3):
             setattr(self, f'norm{i}', nn.LayerNorm(embed_dim * 2 ** i, eps=LN_EPS))

@@ -103,18 +103,20 @@ class Yolact(nn.Module):
     With `train_mode` the model also holds the train-only semantic head
     (`semantic_seg_conv`, 1x1 on P3 to C-1 classes) and returns (raw class
     logits, box, coef, proto, seg logits [B, S/8, S/8, C-1]), all float32.
-    BatchNorm follows the module's train()/eval() mode."""
+    BatchNorm follows the module's train()/eval() mode. With cfg.remat the
+    backbone's blocks are recomputed in the backward of a training
+    forward."""
 
     def __init__(self, cfg: Config, train_mode: bool = False):
         super().__init__()
         self.cfg = cfg
         self.train_mode = train_mode
         if cfg.backbone in BACKBONE_LAYERS:
-            self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone])
+            self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone], remat=cfg.remat)
             self.fpn = FPN((512, 1024, 2048))
         elif cfg.backbone == 'swin_tiny':
             # The swin modules take their compute dtype at construction.
-            self.backbone = SwinTiny(dtype=getattr(torch, cfg.compute_dtype))
+            self.backbone = SwinTiny(dtype=getattr(torch, cfg.compute_dtype), remat=cfg.remat)
             self.fpn = FPN((192, 384, 768))
         else:
             raise ValueError(f'Unknown backbone {cfg.backbone!r}')

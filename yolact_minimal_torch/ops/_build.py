@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`csrc/*.cu`) and its one host
+library (`csrc/nms.cc`).
 
 Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
 plain C interface and loaded with `ctypes`; no PyTorch headers are involved,
@@ -10,6 +11,10 @@ next use and an unchanged one is reused.
 Every kernel entry point returns the `cudaError_t` of its launch; `launch`
 raises when it is not 0 (a refused launch never runs, and a later
 synchronize would not report it).
+
+The host library (greedy NMS for --traditional_nms) is compiled by `g++`
+with the flags of `native/Makefile` into `build/torch_host/`, named by a
+hash of its source and the flags; `native/` itself is never built.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
+HOST_BUILD_DIR = BUILD_DIR.parent / 'torch_host'
+CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-shared', '-std=c++17', '-Wall')
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -85,3 +92,46 @@ def launch(fn, *args) -> None:
     if err != 0:
         raise RuntimeError(f'CUDA launch of {fn.__name__} failed: '
                            f'cudaError_t {err}')
+
+
+def cxx_path() -> str:
+    path = shutil.which('g++')
+    if path is None:
+        raise RuntimeError('g++ not found: the host library csrc/nms.cc builds with g++')
+    return path
+
+
+def host_target(name: str) -> Path:
+    """The library of `csrc/{name}.cc`, named by its source and CXX_FLAGS."""
+    source = (CSRC / f'{name}.cc').read_bytes()
+    digest = hashlib.sha256(source + b'\0' + ' '.join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return HOST_BUILD_DIR / f'lib{name}_{digest}.so'
+
+
+def host_command(name: str, out: Path) -> list:
+    return [cxx_path(), *CXX_FLAGS, '-o', str(out), str(CSRC / f'{name}.cc')]
+
+
+def build_host(name: str) -> Path:
+    """Compile `csrc/{name}.cc` with g++ unless its library is up to date.
+    The library is written to a temporary file and moved into place, so
+    processes that build it at once each see a whole file. Raises with g++'s
+    log if the build fails."""
+    target = host_target(name)
+    if not target.exists():
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+        proc = subprocess.run(host_command(name, tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f'g++ failed for csrc/{name}.cc:\n{proc.stdout}{proc.stderr}')
+        os.replace(tmp, target)
+    return target
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of `csrc/{name}.cc`, built at first use."""
+    key = f'{name}.cc'
+    if key not in _loaded:
+        _loaded[key] = ctypes.CDLL(str(build_host(name)))
+    return _loaded[key]

@@ -2,6 +2,7 @@
 
     python -m yolact_minimal_torch.train --cfg res50_custom --img_size 544 --train_bs 8 \\
         [--max_steps N] [--device cuda|cpu] [--compute_dtype float32|bfloat16] [--resume F.ckpt]
+        [--backbone_weight B.pth] [--remat] [--traditional_nms]
 
 The JAX package's `train.py` loop on one device: batches from `TrainLoader`
 (worker processes), one `train_step` each, a log line every 10 steps
@@ -12,13 +13,18 @@ state and the step at the end and on Ctrl-C, and `--resume` from such a
 file (the JAX package's or the port's). A non-finite loss saves
 `latest_{cfg}_nan_{step}.ckpt` and raises. TensorBoard logs where
 tensorboardX or torch.utils.tensorboard imports. Runs on the card unless
-`--device cpu`. Training starts from the reference init drawn from seed 0,
-as the JAX CLI's PRNGKey(0): no backbone `.pth` is read.
+`--device cpu`. Without --resume, training starts from the reference init
+drawn from seed 0, as the JAX CLI's PRNGKey(0), with the backbone taken from
+--backbone_weight (which must exist) or else from the config's default path
+where that file exists. --remat recomputes each backbone block's forward in
+the backward (models/yolact.py); --traditional_nms validates with greedy NMS
+on the host.
 """
 from __future__ import annotations
 
 import argparse
 import datetime
+import os.path as osp
 import time
 
 import numpy as np
@@ -35,7 +41,7 @@ from yolact_minimal_torch.utils import timer
 from yolact_minimal_torch.utils.checkpoint import (load_checkpoint, load_weights_auto,
                                                    save_best, save_latest, step_from_name)
 from yolact_minimal_torch.utils.device import resolve_device
-from yolact_minimal_torch.utils.weights import to_jax_variables
+from yolact_minimal_torch.utils.weights import load_backbone_pth, to_jax_variables
 
 
 def _tb_writer(cfg_name):
@@ -66,13 +72,20 @@ def main(argv=None):
     parser.add_argument('--train_bs', type=int, default=8)
     parser.add_argument('--img_size', type=int, default=544)
     parser.add_argument('--resume', default=None, type=str)
+    parser.add_argument('--backbone_weight', default=None, type=str,
+                        help='Pretrained backbone .pth for init when not resuming (default: '
+                             'the config\'s path, read if the file exists).')
     parser.add_argument('--val_interval', type=int, default=4000)
     parser.add_argument('--val_num', type=int, default=-1)
     parser.add_argument('--val_bs', type=int, default=None)
     parser.add_argument('--coco_api', action='store_true')
-    parser.add_argument('--traditional_nms', action='store_true', help='Not ported yet.')
+    parser.add_argument('--traditional_nms', action='store_true',
+                        help='Validate with greedy per-class NMS on the host.')
     parser.add_argument('--num_workers', type=int, default=8)
     parser.add_argument('--compute_dtype', default='float32', choices=['float32', 'bfloat16'])
+    parser.add_argument('--remat', action='store_true',
+                        help='Recompute each backbone block in the backward pass (less '
+                             'activation memory, one more forward of the backbone).')
     parser.add_argument('--max_steps', type=int, default=-1,
                         help='Stop early after this many steps.')
     parser.add_argument('--lr', type=float, default=None, help='Override the base learning rate.')
@@ -82,8 +95,6 @@ def main(argv=None):
     parser.add_argument('--val_ann', type=str, default=None)
     parser.add_argument('--device', type=str, default='cuda', choices=('cuda', 'cpu'))
     args = parser.parse_args(argv)
-    if args.traditional_nms:
-        raise SystemExit('--traditional_nms is not ported to yolact_minimal_torch yet')
 
     overrides = {k: v for k, v in (
         ('base_lr', args.lr), ('train_imgs', args.train_imgs),
@@ -91,7 +102,8 @@ def main(argv=None):
         ('val_ann', args.val_ann), ('val_bs', args.val_bs)) if v is not None}
     cfg = get_config(args.cfg, mode='train', img_size=args.img_size, train_bs=args.train_bs,
                      val_interval=args.val_interval, val_num=args.val_num,
-                     coco_api=args.coco_api, compute_dtype=args.compute_dtype, **overrides)
+                     coco_api=args.coco_api, compute_dtype=args.compute_dtype,
+                     remat=args.remat, traditional_nms=args.traditional_nms, **overrides)
     device = resolve_device(args.device)
     import_cv2()                        # the augmentation needs it: say so up front
     cfg.print_cfg()
@@ -99,7 +111,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     start_step = 0
-    state_dict = opt_payload = None
+    state_dict = opt_payload = backbone = None
     if args.resume:
         # exact cfg-name equality: 'res50_coco' must not take a 'res50_coco_v2' weight
         assert cfg_name_from_weight(args.resume) == args.cfg, \
@@ -110,8 +122,18 @@ def main(argv=None):
         start_step = step_from_name(args.resume)
         print(f'Resumed from {args.resume} at step {start_step}.')
     else:
-        print('\nTraining from the reference init (seed 0); no backbone .pth is read.\n')
-    state = create_train_state(cfg, device, state_dict=state_dict, step=start_step)
+        # the pretrained-backbone init: required when --backbone_weight is
+        # given, read from the config's default path only if it exists
+        bw = args.backbone_weight or cfg.backbone_weight
+        if args.backbone_weight and not osp.exists(bw):
+            raise FileNotFoundError(f'--backbone_weight {bw!r} not found.')
+        if bw and osp.exists(bw):
+            backbone = load_backbone_pth(bw)
+            print(f'\nBackbone is initiated with {bw}.\n')
+        else:
+            print(f'\nNo pretrained backbone at {bw!r}; training from random init.\n')
+    state = create_train_state(cfg, device, state_dict=state_dict, step=start_step,
+                               backbone=backbone)
     if opt_payload is not None:
         restore_opt_state(state, opt_payload)
         print('Optimizer state (momentum/moments + schedule) restored.')

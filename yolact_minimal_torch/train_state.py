@@ -30,7 +30,8 @@ from yolact_minimal_torch.models.yolact import Yolact
 from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.ops.losses import LossBreakdown, compute_loss
 from yolact_minimal_torch.utils.device import resolve_device
-from yolact_minimal_torch.utils.weights import from_jax_variables, to_jax_variables
+from yolact_minimal_torch.utils.weights import (from_jax_variables, graft_backbone,
+                                                to_jax_variables)
 
 
 def lr_schedule(cfg: Config) -> Callable[[int], float]:
@@ -81,13 +82,19 @@ class TrainState:
 
 def create_train_state(cfg: Config, device: Union[str, torch.device] = 'cuda', seed: int = 0,
                        state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                       step: int = 0) -> TrainState:
+                       step: int = 0,
+                       backbone: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
     """A train-mode Yolact with the reference init drawn from a generator
     seeded with `seed`, or `state_dict`'s weights (a state_dict without the
-    semantic head keeps its init), and a fresh optimizer at `step`."""
+    semantic head keeps its init), and a fresh optimizer at `step`.
+    `backbone` (from `utils/weights.py::load_backbone_pth`) is laid over the
+    init by `graft_backbone`: strictly for the resnets, leniently for swin."""
     device = resolve_device(device)
     model = Yolact(cfg, train_mode=True)
     model.reset_parameters(torch.Generator().manual_seed(seed))
+    if backbone is not None:
+        model.load_state_dict(graft_backbone(model.state_dict(), backbone,
+                                             strict=cfg.backbone != 'swin_tiny'))
     if state_dict is not None:
         missing, unexpected = model.load_state_dict(state_dict, strict=False)
         missing = [k for k in missing if not k.startswith('semantic_seg_conv.')]

@@ -36,7 +36,8 @@ def run_video(path: str, out_dir: Optional[str], batch: int, img_size: int,
     img_size, img_size, 3] float32)` runs on the calling thread and returns
     what `draw(result, j, frame, fps)` needs to draw frame j of the batch;
     draw returns the drawn frame. The frames are written to
-    `out_dir/<basename of path>` (mp4v, the input's frame rate and size), or
+    `out_dir/<basename of path>` (mp4v, the input's frame rate rounded to
+    an integer, as the JAX package writes it, and its size), or
     with `out_dir` None shown in a window. Returns (frames, frames a second
     after the first batch, which includes the warm-up)."""
     cv2 = import_cv2()
@@ -49,8 +50,8 @@ def run_video(path: str, out_dir: Optional[str], batch: int, img_size: int,
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         writer = cv2.VideoWriter(os.path.join(out_dir, os.path.basename(path)),
-                                 cv2.VideoWriter_fourcc(*'mp4v'), vid.get(cv2.CAP_PROP_FPS),
-                                 size)
+                                 cv2.VideoWriter_fourcc(*'mp4v'),
+                                 round(vid.get(cv2.CAP_PROP_FPS)), size)
     progress = ProgressBar(40, total)
     reader, drawer = ThreadPoolExecutor(1), ThreadPoolExecutor(1)
 

@@ -1,5 +1,6 @@
 """Detection visualization (host-side): semantic-color mask overlay,
-per-class boxes and score labels, cutout export and the realtime fps overlay.
+per-class boxes and score labels, cutout export, the realtime fps overlay
+and the --save_lincomb grid of prototypes (`draw_lincomb`, needs cv2).
 
 The blend and the rectangles are numpy, pixel for pixel what cv2.addWeighted
 and cv2.rectangle draw. Text goes through the library that `image_io` reads
@@ -146,3 +147,28 @@ def draw_img(ids_p, scores_p, boxes_p, masks_p, img_origin, cfg,
         fused = fused.astype(np.uint8)
         put_text(fused, text, (0, th + 2))
     return fused
+
+
+def draw_lincomb(proto: np.ndarray, coefs: np.ndarray, img_name: str,
+                 out_dir: str = 'results/images') -> None:
+    """The --save_lincomb debug grid: the 32 prototypes [ph, pw, 32] of an
+    image in 4 rows of 8, most-weighted first by |coef| of the first kept
+    detection (coefs [K, 32]), each scaled by its maximum and its coef,
+    mapped by cv2's WINTER colormap and written to
+    `out_dir/lincomb_<img_name>`. The JAX package's draw_lincomb."""
+    import cv2
+    os.makedirs(out_dir, exist_ok=True)
+    coef = np.asarray(coefs)[0]
+    order = np.argsort(-np.abs(coef))
+    ph, pw = proto.shape[:2]
+    rows, cols = 4, 8
+    grid = np.zeros((ph * rows, pw * cols), np.float32)
+    for y in range(rows):
+        for x in range(cols):
+            i = y * cols + x
+            p = np.asarray(proto[:, :, order[i]])
+            cell = p / max(float(p.max()), 1e-6) * coef[order[i]]
+            grid[y * ph:(y + 1) * ph, x * pw:(x + 1) * pw] = cell
+    img = ((grid + 1) * 127.5).astype(np.uint8)
+    img = cv2.applyColorMap(img, cv2.COLORMAP_WINTER)
+    cv2.imwrite(osp.join(out_dir, f'lincomb_{img_name}'), img)

@@ -14,6 +14,11 @@ the variables as nested dicts of numpy arrays and imports nothing of JAX.
 port's own copy of the JAX package's `convert_state_dict` (resnet) and
 `_convert_swin_entry` (swin), which `utils/checkpoint.py` writes as a
 `.ckpt` the JAX package reads.
+
+`load_backbone_pth` and `graft_backbone` are the pretrained-backbone init of
+training (the JAX package's `convert_backbone_state_dict` and
+`graft_backbone`): the port's state_dict already has the reference's names,
+so a backbone `.pth` is renamed, not converted.
 """
 from __future__ import annotations
 
@@ -285,6 +290,17 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
     return out
 
 
+def _read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A .pth state_dict read with weights_only=True, unwrapping a
+    {'model': ...} or {'state_dict': ...} container."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    for wrapper in ('model', 'state_dict'):
+        if isinstance(sd.get(wrapper), dict):
+            sd = sd[wrapper]
+            break
+    return sd
+
+
 def load_pth(path: str, include_semantic: bool = False) -> Dict[str, torch.Tensor]:
     """A reference-format `.pth` state_dict (unwrapping a {'model': ...} or
     {'state_dict': ...} container), without the `relative_position_index` /
@@ -295,11 +311,65 @@ def load_pth(path: str, include_semantic: bool = False) -> Dict[str, torch.Tenso
     if path.endswith('.ckpt'):
         raise ValueError(f'{path} is a .ckpt (flax msgpack): read it with '
                          'yolact_minimal_torch.utils.checkpoint.load_weights_auto')
-    sd = torch.load(path, map_location='cpu', weights_only=True)
-    for wrapper in ('model', 'state_dict'):
-        if isinstance(sd.get(wrapper), dict):
-            sd = sd[wrapper]
-            break
+    sd = _read_pth(path)
     return {k: v for k, v in sd.items()
             if (include_semantic or not k.startswith('semantic_seg_conv.'))
             and not k.endswith(('.relative_position_index', '.attn_mask'))}
+
+
+# --- a pretrained backbone .pth -> the model's backbone ------------------------
+
+_TV_STAGE = re.compile(r'^layer(\d)\.(\d+)\.(.+)$')      # torchvision naming
+
+
+def load_backbone_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A backbone-only `.pth` (the reference's `init_backbone` files, or
+    torchvision's `layer1..4` names) -> state_dict entries under `backbone.`.
+    Dropped, as the JAX package's converter ignores them: `fc.*` and
+    `head.*` (the classifier), `num_batches_tracked`, swin's
+    `relative_position_index` and `attn_mask` buffers (the port derives
+    them) and swin's final `norm.*`. A swin file is told by its block
+    keys."""
+    sd = _read_pth(path)
+    is_swin = any('.blocks.' in k for k in sd)
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if key.startswith(('fc.', 'head.')) or key.endswith(
+                ('num_batches_tracked', 'relative_position_index', 'attn_mask')):
+            continue
+        if is_swin:
+            if key.startswith('norm.'):
+                continue
+        else:
+            m = _TV_STAGE.match(key)
+            if m:
+                key = f'layers.{int(m.group(1)) - 1}.{m.group(2)}.{m.group(3)}'
+        out[f'backbone.{key}'] = value
+    return out
+
+
+def graft_backbone(state_dict: Dict[str, torch.Tensor], backbone: Dict[str, torch.Tensor],
+                   strict: bool) -> Dict[str, torch.Tensor]:
+    """A copy of the model's `state_dict` with `backbone`'s tensors laid
+    over it. A name the model lacks raises KeyError, a shape that differs
+    ValueError. `strict` (the resnets) also raises ValueError unless every
+    backbone parameter and BatchNorm statistic is covered
+    (`num_batches_tracked` is the port's own); swin is lenient, as published
+    checkpoints lack the FPN-facing norms."""
+    out = dict(state_dict)
+    for key, value in backbone.items():
+        if key not in out:
+            raise KeyError(f'backbone weight has unknown tensor {key}')
+        if tuple(out[key].shape) != tuple(value.shape):
+            raise ValueError(f'shape mismatch at {key}: model {tuple(out[key].shape)} vs '
+                             f'weight {tuple(value.shape)}')
+        out[key] = value.to(out[key].dtype)
+    if strict:
+        wanted = [k for k in state_dict
+                  if k.startswith('backbone.') and not k.endswith('num_batches_tracked')]
+        missing = [k for k in wanted if k not in backbone]
+        if missing:
+            raise ValueError(f'backbone weight covers {len(wanted) - len(missing)} of the '
+                             f'model backbone\'s {len(wanted)} tensors (strict load); '
+                             f'missing {missing[:4]}')
+    return out
