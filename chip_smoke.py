@@ -96,6 +96,23 @@ Phases, in order; any failure exits nonzero:
      swin_tiny_coco, bf16, 544/b8: the losses of the first step within 1e-3,
      ms a step, peak memory, the launches of kernels 3 and 4 (24 and 2 a
      remat swin step); (e) the train CLI with --backbone_weight and --remat.
+  11. data parallelism: (a) a world of two gloo processes on cuda:0
+     (`chip_smoke.py --dp-worker`, each with a timeout), 4 rows each of phase
+     8's first two batches: res50_coco float32 (TF32 off, base_lr 0.1) and
+     swin_tiny_coco bf16 (drop_path on) two steps each, res50_coco float64
+     one, against the one-process step on the same global batch in this
+     process: res50's first-step losses within 1e-4 and its running
+     statistics within 1e-3 of their largest magnitude (float32), its
+     gradients and updated parameters within 1e-5 of their norm (float64);
+     swin's losses within one bf16 ulp; the same
+     weights in both processes; kernels 3 and 4 12 and 1 times a step in
+     each; (b) `python -m yolact_minimal_torch.train` in a one-process nccl
+     world (YOLACT_COORDINATOR) on res50_custom at 256 for 11 steps: the
+     join line, finite losses, its t_step beside phase 8d's; (c) the eval
+     CLI with --data_parallel 1 in this process over phase 3c's weights and
+     images: phase 3c's table row for row, kernel 1 once a batch; and
+     `--data_parallel 2` must exit nonzero saying there is one CUDA device;
+     (d) the phase's seconds.
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Needs no JAX, flax or cv2.
 
@@ -116,7 +133,11 @@ three training paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
 swin_tiny_coco/train_bfloat16), and phase 10's: the traditional paths
 (res50_custom/eval_traditional, res50_coco/cli_traditional,
 swin_tiny_coco/traditional) and the remat pairs
-({res50_coco,swin_tiny_coco}/train_{plain,remat}_bfloat16, over 6 steps). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
+({res50_coco,swin_tiny_coco}/train_{plain,remat}_bfloat16, over 6 steps), and phase 11's:
+each process of the gloo world ({res50_coco/dp_train_float32,
+res50_coco/dp_train_float64, swin_tiny_coco/dp_train_bfloat16}_process{0,1},
+over 2, 1 and 2 steps) and the eval
+CLI with --data_parallel 1 (res50_custom/eval_dp1). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
 around one call, the wrapper's host work included; the suppression,
 window-attention, mask and both block kernels also have `device_ms`, the
@@ -127,6 +148,7 @@ the event time.
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1513,7 +1535,7 @@ def phase_eval(dev, smi, kernel1):
     The planes kernel 1 got on the eval path, and what it gave, are recorded
     in the counted run; after the counts are read each batch is held exactly
     to the plain version and `kernel1` gains input (c). Returns the launch
-    counts."""
+    counts and the CLI's box and mask rows by config."""
     import os
     import tempfile
     import numpy as np
@@ -1539,9 +1561,10 @@ def phase_eval(dev, smi, kernel1):
             save_checkpoint(ckpts[name], to_jax_variables(det.model.state_dict()))
             del det
         torch.cuda.empty_cache()
+        cli_rows = {}
         for name, path in ckpts.items():
             out, seconds = _run_cli('eval', ['--weight', path, '--img_size', str(IMG)], root)
-            rows = _table_rows(out)
+            rows = cli_rows[name] = _table_rows(out)
             print(f'eval CLI {name} {IMG}, 48 images of custom_dataset/, val_bs {EVAL_BS}, '
                   f'float32: exit 0 in {seconds:.2f} s (start-up, checkpoint read and model '
                   f'build included); box row {rows["box"]}, mask row {rows["mask"]}')
@@ -1633,7 +1656,7 @@ def phase_eval(dev, smi, kernel1):
         del det, cpu
     torch.cuda.empty_cache()
     print(f'eval phase: {time.perf_counter() - t_phase:.2f} s')
-    return launches
+    return launches, cli_rows
 
 
 # --- phase 8: training ----------------------------------------------------------
@@ -1852,7 +1875,7 @@ def phase_train_cli(smi):
           f'thresholds all, 50, 55, ..., 95:')
     for k in ('box', 'mask'):
         print(f'  {k:4s} ' + ' '.join(f'{v:6.2f}' for v in rows[k]))
-    return dict(seconds=seconds, first_loss=first, last_loss=last, rows=rows)
+    return dict(seconds=seconds, first_loss=first, last_loss=last, rows=rows, t_step=t_step)
 
 
 def phase_train(dev, smi, kernels, batches):
@@ -2454,6 +2477,390 @@ def phase_flags(dev, smi, batches):
     return by_path
 
 
+# --- phase 11: data parallelism ---------------------------------------------------
+
+# 11a: a world of DP_PROCESSES gloo processes, all on cuda:0 (NCCL refuses
+# two ranks on one card; gloo all-reduces CUDA tensors through the host),
+# each with TRAIN_BS / DP_PROCESSES rows of phase 8's batches, DP_STEPS
+# steps of res50_coco (float32, TF32 off, base_lr DP_LR so that an update is
+# visible beside float32 noise, as tests/test_torch_cuda.py's train steps)
+# and of swin_tiny_coco (bf16, stochastic depth at its 0.2), and one res50
+# step in float64; each process's timeout. Limits: res50 float32, the
+# losses within DP_LOSS_RTOL and the running statistics within DP_BN_REL_TOL
+# of their largest magnitude (tests/test_torch_cuda.py's card-vs-CPU
+# float32 limits); res50 float64, each gradient and updated parameter within
+# DP_F64_TOL of its norm (tests/test_torch_train_step.py's RES50_TOL with no
+# noise floor: the CPU's two-process float64 gradients lie within 4e-13).
+# float32 updates are only printed: at a random init BatchNorm amplifies
+# float32 rounding until a world's step (other convolution batches, other
+# sums) differs from one process's as much as either differs from float64
+# (0.987 of test_torch_cuda.py's allowance, measured on an H100 80GB HBM3 at
+# 700 W). swin's
+# losses within one bf16 ulp (SWIN_BF16_REL_TOL, phase 8a's bf16 limit).
+DP_WORKER_FLAG = '--dp-worker'
+DP_PROCESSES, DP_STEPS, DP_LR, DP_TIMEOUT = 2, 2, 0.1, 300
+DP_LOSS_RTOL = 1e-4
+DP_BN_REL_TOL = 1e-3
+DP_F64_TOL = 1e-5
+# (config, dtype, steps) of the world
+DP_RUNS = (('res50_coco', 'float32', DP_STEPS), ('res50_coco', 'float64', 1),
+           ('swin_tiny_coco', 'bfloat16', DP_STEPS))
+
+
+def _dp_state(name, dev, dtype):
+    """The seed-0 train state of 11a's `name` in `dtype` (res50 at base_lr
+    DP_LR)."""
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.train_state import create_train_state
+    res50 = name.startswith('res50')
+    cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS,
+                     compute_dtype='float32' if dtype == 'float64' else dtype,
+                     **(dict(base_lr=DP_LR) if res50 else {}))
+    state = create_train_state(cfg, dev, seed=0)
+    if dtype == 'float64':
+        state.model.double()
+    return state
+
+
+def _dp_batch(batch, dtype):
+    import numpy as np
+    return dict(batch, image=batch['image'].astype(np.float64)) if dtype == 'float64' else batch
+
+
+def dp_worker(spec_path):
+    """One process of 11a's gloo world (run as `chip_smoke.py --dp-worker
+    SPEC`, YOLACT_* set): joins through parallel/mesh.py, takes its rows of
+    each batch in SPEC's npz, runs each of DP_RUNS from a fresh state with
+    the launch counters at 0 before, and writes the first step's losses
+    summed over the world, per-tensor checksums of the weights, the
+    launches and the ms of the last step (a barrier before and after it)
+    to out_{process}.npz; process 0 also res50's state_dict and gradients
+    after its first step."""
+    import numpy as np
+    import torch
+    from yolact_minimal_torch.parallel import mesh
+    from yolact_minimal_torch.train_state import train_step
+    with open(spec_path) as f:
+        spec = json.load(f)
+    _check(mesh.initialize_distributed(backend='gloo', device='cuda'),
+           'YOLACT_COORDINATOR is not set')
+    try:
+        rank, world = mesh.process_index(), mesh.process_count()
+        dev = mesh.local_device('cuda')
+        data = np.load(spec['batches'])
+        rows = slice(rank * TRAIN_BS // world, (rank + 1) * TRAIN_BS // world)
+        batches = [{k[len(f'{i}/'):]: data[k][rows] for k in data.files
+                    if k.startswith(f'{i}/')} for i in range(DP_STEPS)]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        out = {}
+        for name, dtype, steps in DP_RUNS:
+            run = f'{name}/{dtype}'
+            state = _dp_state(name, dev, dtype)
+            counters = _counters(name)
+            for fn in counters.values():
+                fn.launches = 0
+            losses = train_step(state, _dp_batch(batches[0], dtype))
+            out[f'{run}/losses'] = mesh.global_sum(torch.stack(losses)).double().cpu().numpy()
+            if name.startswith('res50') and rank == 0:
+                for k, v in state.model.state_dict().items():
+                    out[f'{run}/state/{k}'] = v.cpu().numpy().copy()
+                for k, p in state.model.named_parameters():
+                    out[f'{run}/grad/{k}'] = p.grad.cpu().numpy().copy()
+            for batch in batches[1:steps - 1]:
+                train_step(state, _dp_batch(batch, dtype))
+            if steps > 1:
+                mesh.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(state, _dp_batch(batches[steps - 1], dtype))
+                torch.cuda.synchronize()
+                mesh.barrier()
+                out[f'{run}/ms'] = np.float64((time.perf_counter() - t0) * 1e3)
+            out[f'{run}/launches'] = np.array([fn.launches for fn in counters.values()])
+            out[f'{run}/kernels'] = np.array(list(counters))
+            out[f'{run}/checksum'] = np.array([float(t.double().sum()) for t in
+                                               state.model.state_dict().values()])
+            del state
+            torch.cuda.empty_cache()
+        np.savez(os.path.join(spec['out'], f'out_{rank}.npz'), **out)
+    finally:
+        mesh.destroy()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_world(spec_path, n):
+    """n processes of dp_worker; fails if one exits nonzero or outlives
+    DP_TIMEOUT (all are killed). Returns the seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(n):
+        env = dict(os.environ, YOLACT_COORDINATOR=f'127.0.0.1:{port}',
+                   YOLACT_NUM_PROCESSES=str(n), YOLACT_PROCESS_ID=str(rank),
+                   PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get('PYTHONPATH'))
+                                              if p))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       DP_WORKER_FLAG, spec_path], cwd=root, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    _check(all(p.returncode == 0 for p in procs), 'a process of the gloo world failed:\n' +
+           '\n---\n'.join(f'process {i} exited {p.returncode}:\n{log[-3000:]}'
+                          for i, (p, log) in enumerate(zip(procs, logs))))
+    return time.perf_counter() - t0
+
+
+def _one_process_steps(dev, batch):
+    """11a's references on the global batch, in this process: each of
+    DP_RUNS's first step. Returns {config/dtype: (losses, state_dict,
+    gradients)}, the last two for res50 only."""
+    import torch
+    from yolact_minimal_torch.train_state import train_step
+    refs = {}
+    for name, dtype, _ in DP_RUNS:
+        state = _dp_state(name, dev, dtype)
+        losses = [float(t) for t in train_step(state, _dp_batch(batch, dtype))]
+        sd = grads = None
+        if name.startswith('res50'):
+            sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+            grads = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+        refs[f'{name}/{dtype}'] = (losses, sd, grads)
+        del state
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _rel_gaps(ours, ref):
+    return [abs(a - b) / abs(b) for a, b in zip(ours, ref)]
+
+
+def phase_dp_train(dev, smi, batches):
+    """11a: the two-process gloo world against the one-process steps on the
+    same global batch in this call (limits above DP_WORKER_FLAG). res50
+    float32: the first step's four losses and the running statistics;
+    res50 float64: every gradient and updated parameter; swin bf16, drop_path
+    on: the losses, and kernels 3 and 4 launched 12 and 1 times a step in
+    each process. Every process ends with the same weights. Returns {path:
+    launches}."""
+    import tempfile
+    import numpy as np
+    import torch
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        refs = _one_process_steps(dev, batches[0])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, 'batches.npz'), **{f'{i}/{k}': v for i, b in
+                                                      enumerate(batches) for k, v in b.items()})
+        spec = os.path.join(tmp, 'spec.json')
+        with open(spec, 'w') as f:
+            json.dump(dict(batches=os.path.join(tmp, 'batches.npz'), out=tmp), f)
+        seconds = _spawn_world(spec, DP_PROCESSES)
+        outs = [dict(np.load(os.path.join(tmp, f'out_{r}.npz'))) for r in range(DP_PROCESSES)]
+    out = outs[0]
+    for name, dtype, _ in DP_RUNS:
+        for other in outs[1:]:
+            _check(np.array_equal(other[f'{name}/{dtype}/checksum'],
+                                  out[f'{name}/{dtype}/checksum'], equal_nan=True),
+                   f'{name} {dtype}: the processes of the gloo world hold different weights')
+    state = lambda run, k: torch.from_numpy(out[f'{run}/state/{k}'])
+    # res50 float32: losses and running statistics
+    run = 'res50_coco/float32'
+    one, sd32, _ = refs[run]
+    rel = _rel_gaps(out[f'{run}/losses'], one)
+    _check(max(rel) <= DP_LOSS_RTOL, f'res50 float32 gloo world losses '
+                                     f'{out[f"{run}/losses"].tolist()} against one process {one}')
+    worst_bn, update_ratio = 0.0, (0.0, '')
+    _, sd64, _ = refs['res50_coco/float64']
+    for k, ref in sd32.items():
+        got = state(run, k)
+        if k.endswith('num_batches_tracked'):
+            _check(torch.equal(got, ref), f'{k}: {got} against {ref}')
+        elif k.endswith(('running_mean', 'running_var')):
+            worst_bn = max(worst_bn, ((got - ref).abs().max() /
+                                      ref.abs().max().clamp(min=1e-30)).item())
+        else:   # printed only: tests/test_torch_cuda.py's float32 allowance
+            allowed = 2 * (sd64[k].float() - ref).norm().item() + 1e-5 * ref.norm().item()
+            update_ratio = max(update_ratio, ((got - ref).norm().item() / max(allowed, 1e-30), k))
+    _check(worst_bn <= DP_BN_REL_TOL, f'res50 gloo world running statistics {worst_bn:.3g} of '
+                                      f'max off the one-process step (> {DP_BN_REL_TOL})')
+    # res50 float64: gradients and updated parameters
+    run64 = 'res50_coco/float64'
+    one64, _, grads64 = refs[run64]
+    rel64 = _rel_gaps(out[f'{run64}/losses'], one64)
+    _check(max(rel64) <= DP_LOSS_RTOL, f'res50 float64 gloo world losses against one process: '
+                                       f'{rel64}')
+    worst64, over = (0.0, ''), []
+    for what, ref_of, got_of in (
+            ('gradient', grads64, lambda k: torch.from_numpy(out[f'{run64}/grad/{k}'])),
+            ('updated parameter', {k: sd64[k] for k in grads64}, lambda k: state(run64, k))):
+        for k, ref in ref_of.items():
+            gap, norm = (got_of(k) - ref).norm().item(), ref.norm().item()
+            worst64 = max(worst64, (gap / max(norm, 1e-300), f'{what} {k}'))
+            if gap > DP_F64_TOL * norm:
+                over.append(f'{what} {k}: {gap:.3g} of {norm:.3g}')
+    _check(not over, 'res50 float64 gloo world: ' + '; '.join(over[:10]))
+    # swin bf16
+    run = 'swin_tiny_coco/bfloat16'
+    one_swin = refs[run][0]
+    srel = _rel_gaps(out[f'{run}/losses'], one_swin)
+    _check(max(srel) <= SWIN_BF16_REL_TOL, f'swin gloo world losses '
+                                           f'{out[f"{run}/losses"].tolist()} against {one_swin}')
+    by_path = {}
+    for rank, o in enumerate(outs):
+        for name, dtype, steps in DP_RUNS:
+            launches = dict(zip(o[f'{name}/{dtype}/kernels'].tolist(),
+                                o[f'{name}/{dtype}/launches'].tolist()))
+            by_path[f'{name}/dp_train_{dtype}_process{rank}'] = launches
+            if name.startswith('swin'):
+                want = {k: steps * c for k, c in TRAIN_LAUNCHES_PER_STEP.items()}
+                _check(all(launches[k] == c for k, c in want.items())
+                       and launches['attn_block'] == launches['swin_block'] == 0,
+                       f'swin gloo process {rank}: expected {want} over {steps} steps, got '
+                       f'{launches}')
+    print(f'11a. gloo world of {DP_PROCESSES} processes on cuda:0, {TRAIN_BS // DP_PROCESSES} '
+          f'rows each of phase 8\'s batches (global {TRAIN_BS}, {IMG}), {seconds:.2f} s with the '
+          f'processes\' start-up; the same weights in every process; on {smi}')
+    print(f'  res50_coco float32 (TF32 off, base_lr {DP_LR}): first step losses '
+          f'{out["res50_coco/float32/losses"].tolist()} against one process {one}, largest '
+          f'relative gap {max(rel):.3g} (<= {DP_LOSS_RTOL}); running statistics within '
+          f'{worst_bn:.3g} of their largest magnitude (<= {DP_BN_REL_TOL}); updated parameters '
+          f'(printed only) at most {update_ratio[0]:.3g} of twice the one-process float32 step\'s '
+          f'distance from float64 plus 1e-5 of the norm ({update_ratio[1]}); a step '
+          f'{out["res50_coco/float32/ms"]:.3f} ms in the world (gloo through the host)')
+    print(f'  res50_coco float64: losses within {max(rel64):.3g}; gradients and updated '
+          f'parameters within {worst64[0]:.3g} of their norm ({worst64[1]}; <= {DP_F64_TOL})')
+    print(f'  swin_tiny_coco bf16, drop_path 0.2: first step losses '
+          f'{out[f"{run}/losses"].tolist()} against one process {one_swin}, largest relative '
+          f'gap {max(srel):.3g} (<= {SWIN_BF16_REL_TOL:.3g}); a step '
+          f'{out[f"{run}/ms"]:.3f} ms in the world; launches per process ' + ', '.join(
+              f'{p}: {c}' for p, c in by_path.items() if p.startswith('swin')))
+    return by_path
+
+
+def phase_dp_train_cli(smi, plain_t_step):
+    """11b: `python -m yolact_minimal_torch.train` in a one-process nccl world
+    (YOLACT_COORDINATOR set) on res50_custom at FLAGS_CLI_IMG for
+    FLAGS_CLI_STEPS steps: the 'Joined distributed runtime' line and finite
+    logged losses; its t_step beside the plain CLI's of phase 8d."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = [os.path.join(root, p) for p in ('custom_dataset/images',
+                                            'custom_dataset/annotations.json')]
+    env = dict(os.environ, YOLACT_COORDINATOR=f'127.0.0.1:{_free_port()}',
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get('PYTHONPATH')) if p))
+    with tempfile.TemporaryDirectory() as cwd:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-m', 'yolact_minimal_torch.train', '--cfg',
+                               'res50_custom', '--img_size', str(FLAGS_CLI_IMG), '--train_bs',
+                               '8', '--max_steps', str(FLAGS_CLI_STEPS), '--num_workers',
+                               str(TRAIN_WORKERS), '--train_imgs', data[0], '--train_ann',
+                               data[1], '--val_imgs', data[0], '--val_ann', data[1]],
+                              cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+    out = proc.stdout
+    _check(proc.returncode == 0, f'the nccl train CLI exited {proc.returncode}:\n{out[-3000:]}\n'
+                                 f'{proc.stderr[-3000:]}')
+    joined = re.findall(r'Joined distributed runtime: .*', out)
+    _check(joined and 'backend nccl' in joined[0], f'no nccl join line:\n{out[-2000:]}')
+    logged = [tuple(float(x) for x in m) for m in re.findall(
+        r'l_class: (\S+) \| l_box: (\S+) \| l_mask: (\S+) \| l_semantic: (\S+) \| t_t: \S+ \| '
+        r't_d: \S+ \| t_step: (\S+)', out)]
+    _check(logged and all(math.isfinite(v) for l in logged for v in l[:4]),
+           f'the nccl train CLI logged no finite losses:\n{out[-2000:]}')
+    print(f'11b. train CLI in a one-process nccl world, res50_custom {FLAGS_CLI_IMG}/b8, '
+          f'{FLAGS_CLI_STEPS} steps: {seconds:.2f} s; "{joined[0]}"; logged losses '
+          f'{[l[:4] for l in logged]}; t_step {logged[-1][4]:.3f} s (steps 1-9) against the '
+          f'plain CLI\'s {plain_t_step:.3f} s (phase 8d at {TRAIN_CLI_IMG}, its last log '
+          f'line); on {smi}')
+
+
+def phase_dp_eval(dev, smi, plain_rows):
+    """11c: `eval.main([... '--data_parallel', '1'])` in this process on a
+    seeded res50_custom .ckpt at IMG over custom_dataset/ (phase 3c's
+    weights and images), the counters at 0 before: its table equals phase
+    3c's plain CLI table row for row, kernel 1 launched once a batch; then
+    `python -m yolact_minimal_torch.eval --data_parallel 2` must exit
+    nonzero saying that there is one CUDA device. Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from yolact_minimal_torch import eval as port_eval
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.pipeline import Detector
+    from yolact_minimal_torch.utils.checkpoint import save_checkpoint
+    from yolact_minimal_torch.utils.weights import to_jax_variables
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = ['--val_imgs', os.path.join(root, 'custom_dataset', 'images'),
+            '--val_ann', os.path.join(root, 'custom_dataset', 'annotations.json')]
+    with tempfile.TemporaryDirectory() as tmp:
+        det = Detector(get_config('res50_custom', img_size=IMG), device=dev, seed=0)
+        ckpt = os.path.join(tmp, 'seeded_res50_custom_0.ckpt')
+        save_checkpoint(ckpt, to_jax_variables(det.model.state_dict()))
+        del det
+        counters = _counters('res50_custom')
+        for fn in counters.values():
+            fn.launches = 0
+        tf32 = torch.backends.cudnn.allow_tf32
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                port_eval.main(['--weight', ckpt, '--img_size', str(IMG), '--data_parallel',
+                                '1', *data])
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        rows = _table_rows(buf.getvalue())
+        _check(rows == plain_rows, f'--data_parallel 1 table {rows} differs from the plain '
+                                   f'eval CLI\'s {plain_rows}')
+        batches = -(-48 // EVAL_BS)
+        _check(launches['suppression_iou_max'] == batches and launches['mask_finalize'] == 0,
+               f'--data_parallel 1 launched {launches}, expected kernel 1 once a batch')
+        proc = subprocess.run([sys.executable, '-m', 'yolact_minimal_torch.eval', '--weight',
+                               ckpt, '--img_size', str(IMG), '--data_parallel', '2', *data],
+                              cwd=root, capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=root))
+    said = (proc.stdout + proc.stderr).strip().splitlines()[-1:]
+    _check(proc.returncode != 0 and said and 'this machine has 1 CUDA device' in said[0],
+           f'--data_parallel 2 exited {proc.returncode}: {proc.stderr[-2000:]}')
+    print(f'11c. eval CLI --data_parallel 1 (in this process), res50_custom {IMG}, 48 images: '
+          f'{seconds:.2f} s, table equal to phase 3c\'s plain CLI row for row (box '
+          f'{rows["box"]}, mask {rows["mask"]}); launches {launches}; --data_parallel 2 '
+          f'exited {proc.returncode}: "{said[0]}"; on {smi}')
+    return launches
+
+
+def phase_parallel(dev, smi, batches, plain_t_step, plain_rows):
+    """Phase 11: data parallelism (11a-c); 11d its seconds. Returns {path:
+    launches}."""
+    t_phase = time.perf_counter()
+    by_path = phase_dp_train(dev, smi, batches)
+    phase_dp_train_cli(smi, plain_t_step)
+    by_path['res50_custom/eval_dp1'] = phase_dp_eval(dev, smi, plain_rows)
+    print(f'11d. parallel phase: {time.perf_counter() - t_phase:.2f} s')
+    return by_path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2461,6 +2868,8 @@ def main():
               'needs an NVIDIA card', file=sys.stderr)
         return 2
     import yolact_minimal_torch  # noqa: F401  (fails outside a checkout)
+    if len(sys.argv) == 3 and sys.argv[1] == DP_WORKER_FLAG:
+        return dp_worker(sys.argv[2])
     dev = torch.device('cuda', 0)
     smi = phase_env()
     phase_build()
@@ -2468,8 +2877,8 @@ def main():
                check_window_attention(dev), check_swin_mlp(dev)]
     kernels += [check_attn_block(dev, kernels[2]), check_swin_block(dev, *kernels[2:])]
     torch.cuda.empty_cache()
-    by_path = {'res50_coco/cli': phase_cli(dev),
-               'res50_custom/eval': phase_eval(dev, smi, kernels[0])}
+    by_path = {'res50_coco/cli': phase_cli(dev)}
+    by_path['res50_custom/eval'], eval_rows = phase_eval(dev, smi, kernels[0])
     for name, forms in (('res50_coco', ('composed',)), ('swin_tiny_coco', tuple(SWIN_PATHS))):
         det = images = composed_out = None
         for form in forms:
@@ -2486,10 +2895,12 @@ def main():
         del det, images, composed_out
         torch.cuda.empty_cache()
     batches = _train_batches(max(TRAIN_STEPS + 2, 1 + REMAT_STEPS))
-    train_paths, _ = phase_train(dev, smi, kernels, batches)
+    train_paths, train_numbers = phase_train(dev, smi, kernels, batches)
     by_path.update(train_paths)
     by_path[EXPORT_PATH], _ = phase_export(dev, smi)
     by_path.update(phase_flags(dev, smi, batches))
+    by_path.update(phase_parallel(dev, smi, batches[:DP_STEPS], train_numbers['cli']['t_step'],
+                                  eval_rows['res50_custom']))
     del batches
     # `launches` is the count on the path that runs the kernel
     own_path = {'suppression_iou_max': 'res50_coco', 'mask_finalize': 'res50_coco',

@@ -861,3 +861,67 @@ def test_bf16_swin_artifact_on_the_card_equals_its_live_model(card, tmp_path):
     assert [f.launches - n for f, n in zip(counters, before)] == [8, 10, 2, 2]
     for a, b in zip(live, outs):
         assert torch.equal(a, b)
+
+
+# --- data parallelism ----------------------------------------------------------------
+
+def test_one_process_nccl_step_equals_the_plain_step(card):
+    """The res50 float32 step of `_res50_train_case` in a one-process nccl
+    world (parallel/mesh.py, as the train CLI joins one) against the step
+    without a process group, from one seeded init: the losses within 1e-4
+    relative, each part's gradient within REMAT_PART_TOL['float32'] of its
+    norm (two plain float32 steps on the card differ by ~4.5e-7: the
+    bilinear backward sums with atomics)."""
+    import socket
+    from yolact_minimal_torch.parallel import mesh
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    cfg, batch = _res50_train_case()
+    runs = []
+    for joined in (False, True):
+        if joined:
+            with socket.socket() as s:
+                s.bind(('127.0.0.1', 0))
+                port = s.getsockname()[1]
+            assert mesh.initialize_distributed(f'127.0.0.1:{port}', 1, 0)
+        try:
+            if joined:
+                assert mesh.dist.get_backend() == 'nccl' and mesh.process_count() == 1
+            state = create_train_state(cfg, card, seed=0)
+            losses = train_step(state, batch)
+            torch.cuda.synchronize()
+            runs.append(([float(t) for t in losses],
+                         {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}))
+        finally:
+            mesh.destroy()
+    (plain, grads), (ours, ours_grads) = runs
+    np.testing.assert_allclose(ours, plain, rtol=1e-4)
+    parts = {}
+    for k, ref in grads.items():
+        sums = parts.setdefault(k.split('.')[0], np.zeros(2))
+        sums += ((ours_grads[k] - ref).norm().item() ** 2, ref.norm().item() ** 2)
+    over = {part: np.sqrt(g2 / n2) for part, (g2, n2) in parts.items()
+            if np.sqrt(g2) > REMAT_PART_TOL['float32'] * np.sqrt(n2)}
+    assert not over, over
+
+
+def test_mesh_of_one_detector_equals_the_plain_detector(card):
+    """Detector(mesh=make_mesh(1)) on the card: the plain Detector's slate,
+    masks and prototypes at tests/test_dp_eval.py's tolerances, kernel 1
+    launched."""
+    from yolact_minimal_torch.parallel.mesh import make_mesh
+    from yolact_minimal_torch.pipeline import Detector
+    cfg = get_config('res50_coco', img_size=128, nms_score_thre=0.012)
+    plain = Detector(cfg, seed=0)
+    dp = Detector(cfg, seed=0, mesh=make_mesh(1))
+    assert dp.device == torch.device('cuda', 0) and len(dp.replicas) == 1
+    images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    before = suppression_iou_max.launches
+    ours, masks, proto = dp(images)
+    assert suppression_iou_max.launches == before + 1
+    ref, ref_masks, ref_proto = plain(images)
+    assert int(ref.valid.sum()) > 0
+    assert torch.equal(ours.ids, ref.ids) and torch.equal(ours.valid, ref.valid)
+    torch.testing.assert_close(ours.scores, ref.scores, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ours.boxes, ref.boxes, rtol=0, atol=1e-6)
+    torch.testing.assert_close(masks, ref_masks, rtol=0, atol=1e-5)
+    torch.testing.assert_close(proto, ref_proto, rtol=0, atol=1e-5)

@@ -1,5 +1,5 @@
 """The port stands alone: it imports no JAX, no flax, no msgpack, nothing of
-the JAX package and no cv2 at import time, and its entry points run on the card
+the JAX package and no cv2 or scipy at import time, and its entry points run on the card
 unless the caller asks for the CPU."""
 import os
 import subprocess
@@ -25,13 +25,16 @@ def test_port_imports_no_jax():
                    'utils.msgpack', 'utils.checkpoint', 'data.coco', 'utils.cocoeval',
                    'train', 'train_state', 'ops.losses', 'ops.matching', 'data.augment',
                    'ops.nms_numpy', 'deploy', 'export', 'detect_with_export',
-                   'ops.traditional_nms', 'models.remat'):
+                   'ops.traditional_nms', 'models.remat', 'parallel.mesh',
+                   'data.converters', 'data.synthetic', 'tools.labelme2coco',
+                   'tools.pascal2coco', 'tools.make_custom_dataset',
+                   'tools.view_annotations'):
         assert f'yolact_minimal_torch.{module}' in PORT_MODULES
     code = (
         'import sys\n'
         f'for m in {PORT_MODULES!r}: __import__(m)\n'
         'bad = sorted(k for k in sys.modules if k.split(".")[0] in '
-        '("jax", "jaxlib", "flax", "msgpack", "yolact_minimal_tpu", "cv2"))\n'
+        '("jax", "jaxlib", "flax", "msgpack", "yolact_minimal_tpu", "cv2", "scipy"))\n'
         'print(len(sys.modules)); assert not bad, bad\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,

@@ -175,21 +175,29 @@ def _pool_build(args):
 
 
 class TrainLoader:
-    """Shuffled, prefetching iterator of train batches (numpy dicts).
+    """Shuffled, sharded, prefetching iterator of train batches (numpy dicts).
 
-    Each epoch the indices are permuted by np.random.RandomState(seed +
-    epoch), cut to whole batches, and built by a pool of `num_workers`
+    `batch_size` is the GLOBAL batch size: each of `process_count`
+    processes yields its `batch_size / process_count` rows a step. Each
+    epoch the indices are permuted by np.random.RandomState(seed + epoch)
+    (the same in every process), sharded process_index::process_count, cut
+    to the common per-process length and to whole batches, and built by a
+    pool of `num_workers`
     spawned processes (`backend='process'`, the default for more than one
     worker: the augmentation holds the GIL) or threads, with num_workers +
     prefetch batches in flight; batch bi of epoch e draws from
     random.Random(f'{seed}-{e}-{bi}'). `close()` stops the pool."""
 
     def __init__(self, dataset: COCODetection, cfg: Config, batch_size: int,
-                 num_workers: int = 8, seed: int = 0, prefetch: int = 8,
-                 backend: Optional[str] = None):
+                 num_workers: int = 8, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1, prefetch: int = 8, backend: Optional[str] = None):
+        if batch_size % process_count:
+            raise ValueError(f'global batch size {batch_size} must divide '
+                             f'over {process_count} processes')
         self.ds = dataset
         self.cfg = cfg
-        self.bs = batch_size
+        self.bs = batch_size // process_count          # this process's rows
+        self.pidx, self.pcount = process_index, process_count
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = prefetch
@@ -199,6 +207,8 @@ class TrainLoader:
 
     def _epoch_indices(self) -> np.ndarray:
         idx = np.random.RandomState(self.seed + self.epoch).permutation(len(self.ds))
+        # the common per-process length: every process takes as many batches
+        idx = idx[self.pidx::self.pcount][:len(idx) // self.pcount]
         n_batches = len(idx) // self.bs
         return idx[: n_batches * self.bs].reshape(n_batches, self.bs)
 

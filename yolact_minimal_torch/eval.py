@@ -2,7 +2,8 @@
 
     python -m yolact_minimal_torch.eval --weight W [--img_size 544]
         [--val_num N] [--val_bs B] [--coco_api] [--strict] [--traditional_nms]
-        [--cfg NAME] [--val_imgs DIR] [--val_ann FILE] [--device cuda|cpu]
+        [--cfg NAME] [--data_parallel N] [--val_imgs DIR] [--val_ann FILE]
+        [--device cuda|cpu]
 
 W is a `.ckpt` that the JAX package wrote or a reference-format `.pth`; the
 config name is read from its file name unless --cfg gives it. The CLI
@@ -11,10 +12,11 @@ and images. Images go to the device in batches of cfg.val_bs (the tail
 padded with its last image, which is not scored); the network, decode and
 NMS run there, and the host upsamples each image's masks and scores it. With
 --traditional_nms the NMS and the masks run on the host (pipeline.py).
+With --data_parallel N each batch is split over N devices, one replica of
+the model on each (pipeline.py); val_bs is rounded to a multiple of N.
 
 It needs cv2: polygon annotations are rasterized with cv2.fillPoly. Without
-cv2 it stops before the detector is built. --data_parallel is not ported
-yet.
+cv2 it stops before the detector is built.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from yolact_minimal_torch.config import cfg_name_from_weight, get_config
 from yolact_minimal_torch.data.coco import COCODetection
 from yolact_minimal_torch.data.coco_io import require_cv2
 from yolact_minimal_torch.ops.nms import Detections
+from yolact_minimal_torch.parallel.mesh import make_mesh
 from yolact_minimal_torch.pipeline import load_detector
 from yolact_minimal_torch.utils import image_io, timer
 from yolact_minimal_torch.utils.map_eval import MakeJson, calc_map, make_ap_data, prep_metrics
@@ -182,15 +185,15 @@ def main(argv=None):
                         help='Greedy per-class NMS on the host instead of fast NMS.')
     parser.add_argument('--cfg', type=str, default=None,
                         help='Override config name (else parsed from weight).')
-    parser.add_argument('--data_parallel', type=int, default=0, help='Not ported yet.')
+    parser.add_argument('--data_parallel', type=int, default=0,
+                        help='Split each eval batch over this many devices (0 = one '
+                             'device); val_bs is rounded to a multiple.')
     parser.add_argument('--val_imgs', type=str, default=None,
                         help='Override the validation image directory.')
     parser.add_argument('--val_ann', type=str, default=None,
                         help='Override the validation annotation json.')
     parser.add_argument('--device', type=str, default='cuda', choices=('cuda', 'cpu'))
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit('--data_parallel is not ported to yolact_minimal_torch yet')
 
     name = args.cfg or cfg_name_from_weight(args.weight)
     overrides = {} if args.val_bs is None else {'val_bs': args.val_bs}
@@ -209,10 +212,21 @@ def main(argv=None):
     except ImportError as e:
         raise SystemExit(str(e)) from None
 
+    mesh = None
+    if args.data_parallel:
+        try:
+            mesh = make_mesh(args.data_parallel, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f'--data_parallel {args.data_parallel}: {e}') from None
+        if cfg.val_bs % args.data_parallel:
+            cfg.val_bs = args.data_parallel * max(1, cfg.val_bs // args.data_parallel)
+            print(f'val_bs rounded to {cfg.val_bs} for the '
+                  f'{args.data_parallel}-device mesh.')
+
     # float32 convolutions in float32, as the JAX package computes them:
     # TF32 would move random-init scores past their near-ties
     torch.backends.cudnn.allow_tf32 = False
-    detector = load_detector(args.weight, cfg, device=args.device)
+    detector = load_detector(args.weight, cfg, device=args.device, mesh=mesh)
     evaluate(detector, cfg, max_images=cfg.val_num)
 
 

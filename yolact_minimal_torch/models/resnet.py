@@ -7,7 +7,8 @@ both. Module names follow the reference state_dict
 (`layers.{stage}.{block}.conv1`, `downsample.0/1`).
 
 In training mode BatchNorm normalizes with the batch statistics and updates
-its running statistics by flax's rule (`BatchNorm2d`). With `remat` each
+its running statistics by flax's rule (`BatchNorm2d`); in a process group
+the statistics are those of the global batch (parallel/mesh.py). With `remat` each
 Bottleneck is recomputed in the backward (`models/remat.py`); the stem stays
 outside, as in the JAX package.
 """
@@ -20,6 +21,50 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from yolact_minimal_torch.models import remat as _remat
+from yolact_minimal_torch.parallel import mesh
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm over the global batch of a process group.
+
+    Forward: the mean from the summed (sum, count), then the variance from
+    the summed centred second moment (two passes, as torch.var_mean).
+    Backward: nn.BatchNorm2d's formula, dx = w * invstd * (dy - mean(dy) -
+    xhat * mean(dy * xhat)), with the two means (the gradients of the
+    statistics) summed over the world; the weight and bias gradients stay
+    this process's, and the train step sums them with the others. The sums
+    accumulate as nn.BatchNorm2d's do (float64 on the CPU, float32 on the
+    card), the rest computes in float32 at least. Returns (y, mean, biased
+    var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        acc = torch.float64 if x.device.type == 'cpu' else torch.float32
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xa = x.to(torch.promote_types(x.dtype, acc))
+        count = xa.new_tensor([xa.numel() // xa.shape[1]])
+        sums = mesh.global_sum(torch.cat([xa.sum(dim=(0, 2, 3)), count]))
+        count, mean = sums[-1], sums[:-1] / sums[-1]
+        var = mesh.global_sum((xa - mean[None, :, None, None]).square().sum(dim=(0, 2, 3))) / count
+        mean, invstd, var = mean.to(dtype), torch.rsqrt(var + eps).to(dtype), var.to(dtype)
+        y = (x.to(dtype) - mean[None, :, None, None]) * (invstd * weight)[None, :, None, None] \
+            + bias[None, :, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        c, acc = mean.shape[0], count.dtype
+        xhat = (x.to(mean.dtype) - mean[None, :, None, None]) * invstd[None, :, None, None]
+        dyf = dy.to(mean.dtype)
+        sum_dy = dyf.sum(dim=(0, 2, 3), dtype=acc)
+        sum_dy_xhat = (dyf * xhat).sum(dim=(0, 2, 3), dtype=acc)
+        means = (mesh.global_sum(torch.cat([sum_dy, sum_dy_xhat])) / count).to(mean.dtype)
+        dx = (dyf - means[None, :c, None, None] - xhat * means[None, c:, None, None]) \
+            * (invstd * weight)[None, :, None, None]
+        return dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -28,18 +73,33 @@ class BatchNorm2d(nn.BatchNorm2d):
     BIASED batch variance, where nn.BatchNorm2d takes the unbiased one. The
     output and the eval mode are nn.BatchNorm2d's. The backward's recompute
     of a rematerialized block leaves the statistics as the forward left
-    them."""
+    them.
+
+    In a process group of more than one process the batch is the global
+    one, as flax's BatchNorm reduces over the sharded batch axis
+    (`_GlobalBatchNorm`), and every process updates the running statistics
+    alike. The recompute of a rematerialized block reduces again: its
+    output needs the statistics."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.distributed():
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            if not _remat.recomputing():
+                self._update_running(mean, var)
+            return y
         if not _remat.recomputing():
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-                self.running_var.mul_(0.9).add_(var, alpha=0.1)
-                self.num_batches_tracked.add_(1)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            self.num_batches_tracked.add_(1)
 
 
 class Bottleneck(nn.Module):

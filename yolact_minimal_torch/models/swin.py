@@ -53,6 +53,7 @@ from yolact_minimal_torch.ops.attn_block import attn_block
 from yolact_minimal_torch.ops.swin_block import swin_block
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
 from yolact_minimal_torch.ops.window_attention import window_attention
+from yolact_minimal_torch.parallel import mesh
 
 WINDOW = 7
 FORMS = ('composed', 'attn_block', 'whole')
@@ -173,12 +174,15 @@ def _needs_grad(params: Sequence[torch.Tensor]) -> bool:
 def drop_path(x: torch.Tensor, rate: float,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Per-sample stochastic depth: each sample's x kept with probability
-    1 - rate and then scaled by 1 / (1 - rate); the identity at rate 0."""
+    1 - rate and then scaled by 1 / (1 - rate); the identity at rate 0. In
+    a process group the keep bits are drawn for the global batch and this
+    process takes its rows, so a world of N draws what one process does."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                   device=x.device)
+    total, offset = mesh.global_rows(x.shape[0])
+    u = torch.rand((total,) + (1,) * (x.dim() - 1), generator=generator,
+                   device=x.device)[offset:offset + x.shape[0]]
     return x / keep * torch.floor(keep + u).to(x.dtype)
 
 

@@ -14,6 +14,12 @@ The port's own copy of the JAX package's `ops/losses.py`:
 
 Ground-truth masks arrive downsampled and binarized (`data/coco.py`), as
 uint8 or float.
+
+In a process group each process computes the numerators on its rows and
+divides them by the global positives and images (`parallel/mesh.py`), so
+the global loss is the sum of the processes' losses; the lincomb
+subsample's priorities are drawn for the global batch. OHEM's negatives
+stay per image.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 
 from yolact_minimal_torch.ops.boxes import crop
 from yolact_minimal_torch.ops.matching import match
+from yolact_minimal_torch.parallel import mesh
 
 
 class LossBreakdown(NamedTuple):
@@ -50,9 +57,10 @@ def _log_clamped(x: torch.Tensor) -> torch.Tensor:
 
 
 def category_loss(class_p: torch.Tensor, conf_gt: torch.Tensor, conf_alpha: float,
-                  np_ratio: int = 3) -> torch.Tensor:
+                  np_ratio: int = 3, total_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """class_p [B, A, C] logits, conf_gt [B, A] (>0 class + 1, 0 bg, -1
-    neutral)."""
+    neutral). `total_pos`, the positives of the global batch, divides the
+    sum (this batch's positives without it)."""
     a = class_p.shape[1]
     pos = conf_gt > 0
     neutral = conf_gt < 0
@@ -70,29 +78,35 @@ def category_loss(class_p: torch.Tensor, conf_gt: torch.Tensor, conf_alpha: floa
     logp = F.log_softmax(class_p, dim=-1)
     ce = -torch.gather(logp, -1, target[..., None])[..., 0]
     ce_sum = torch.where(pos | neg, ce, 0.0).sum()
-    return conf_alpha * ce_sum / num_pos.sum().clamp(min=1)
+    total_pos = num_pos.sum() if total_pos is None else total_pos
+    return conf_alpha * ce_sum / total_pos.clamp(min=1)
 
 
 def box_loss(box_p: torch.Tensor, offsets_gt: torch.Tensor, pos: torch.Tensor,
-             bbox_alpha: float) -> torch.Tensor:
+             bbox_alpha: float, total_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     diff = (box_p - offsets_gt).abs()
     sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
     loss = torch.where(pos[..., None], sl1, 0.0).sum()
-    return bbox_alpha * loss / pos.sum().clamp(min=1)
+    total_pos = pos.sum() if total_pos is None else total_pos
+    return bbox_alpha * loss / total_pos.clamp(min=1)
 
 
 def lincomb_mask_loss(pos, anchor_max_i, coef_p, proto_p, masks_proto, anchor_max_gt,
                       mask_alpha: float, masks_to_train: int,
                       generator: Optional[torch.Generator] = None,
-                      priorities: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      priorities: Optional[torch.Tensor] = None,
+                      total_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """pos [B, A] bool, anchor_max_i [B, A], coef_p [B, A, 32], proto_p
     [B, ph, pw, 32], masks_proto [B, G, ph, pw], anchor_max_gt [B, A, 4].
-    `priorities` [B, A] in [0, 1) rank the positives for the subsample;
-    without them they are drawn uniformly from `generator`."""
+    `priorities` [B_global, A] in [0, 1) rank the positives of the global
+    batch for the subsample, and this process takes its rows; without them
+    they are drawn uniformly from `generator`."""
     b, a = pos.shape
     ph, pw = proto_p.shape[1], proto_p.shape[2]
+    total, offset = mesh.global_rows(b)
     if priorities is None:
-        priorities = torch.rand((b, a), generator=generator, device=pos.device)
+        priorities = torch.rand((total, a), generator=generator, device=pos.device)
+    priorities = priorities[offset:offset + b]
     k = min(masks_to_train, a)
     priority = torch.where(pos, priorities.to(torch.float32), -torch.inf)
     sel = torch.topk(priority, k, dim=1).indices                           # [B, K]
@@ -117,13 +131,16 @@ def lincomb_mask_loss(pos, anchor_max_i, coef_p, proto_p, masks_proto, anchor_ma
     num_used = old_num_pos.clamp(max=masks_to_train)
     scale = torch.where(old_num_pos > num_used, old_num_pos / num_used.clamp(min=1), 1.0)
     per_img = per_pos.sum(dim=1) * scale
-    return mask_alpha * per_img.sum() / ph / pw / pos.sum().clamp(min=1)
+    total_pos = pos.sum() if total_pos is None else total_pos
+    return mask_alpha * per_img.sum() / ph / pw / total_pos.clamp(min=1)
 
 
 def semantic_seg_loss(seg_p: torch.Tensor, masks_seg: torch.Tensor, labels_gt: torch.Tensor,
-                      gt_valid: torch.Tensor, semantic_alpha: float) -> torch.Tensor:
+                      gt_valid: torch.Tensor, semantic_alpha: float,
+                      total_images: Optional[int] = None) -> torch.Tensor:
     """seg_p [B, sh, sw, C-1] logits; the target of class c is the max of
-    the valid gt masks labelled c."""
+    the valid gt masks labelled c. `total_images`, the global batch size,
+    divides the sum (B without it)."""
     b, sh, sw, c = seg_p.shape
     g = masks_seg.shape[1]
     m = masks_seg.float() * gt_valid[:, :, None, None].float()
@@ -133,7 +150,7 @@ def semantic_seg_loss(seg_p: torch.Tensor, masks_seg: torch.Tensor, labels_gt: t
     seg_gt = seg_gt.permute(0, 2, 3, 1)
     x = seg_p
     bce = x.clamp(min=0.0) - x * seg_gt + torch.log1p(torch.exp(-x.abs()))
-    return semantic_alpha * bce.sum() / sh / sw / b
+    return semantic_alpha * bce.sum() / sh / sw / (total_images or b)
 
 
 def compute_loss(cfg, outputs, gt: dict, anchors: torch.Tensor,
@@ -142,16 +159,21 @@ def compute_loss(cfg, outputs, gt: dict, anchors: torch.Tensor,
     """outputs: (class_p, box_p, coef_p, proto_p, seg_p) of the train-mode
     Yolact. gt: 'boxes' [B, G, 4], 'labels' [B, G], 'valid' [B, G],
     'masks_proto' [B, G, ph, pw], 'masks_seg' [B, G, sh, sw]. `generator`
-    (or `priorities`) feeds the lincomb subsample."""
+    (or `priorities`, of the global batch) feeds the lincomb subsample. In
+    a process group the losses are this process's parts of the global
+    batch's: their sum over the world is the global loss."""
     class_p, box_p, coef_p, proto_p, seg_p = outputs
     m = match(gt['boxes'], gt['labels'], gt['valid'], anchors,
               cfg.pos_iou_thre, cfg.neg_iou_thre)
     pos = m.conf_gt > 0
-    loss_c = category_loss(class_p, m.conf_gt, cfg.conf_alpha)
-    loss_b = box_loss(box_p, m.offsets, pos, cfg.bbox_alpha)
+    total_pos = mesh.global_sum(pos.sum())
+    total_images = mesh.global_rows(pos.shape[0])[0]
+    loss_c = category_loss(class_p, m.conf_gt, cfg.conf_alpha, total_pos=total_pos)
+    loss_b = box_loss(box_p, m.offsets, pos, cfg.bbox_alpha, total_pos=total_pos)
     loss_m = lincomb_mask_loss(pos, m.anchor_max_i, coef_p, proto_p, gt['masks_proto'],
                                m.anchor_max_gt, cfg.mask_alpha, cfg.masks_to_train,
-                               generator=generator, priorities=priorities)
+                               generator=generator, priorities=priorities,
+                               total_pos=total_pos)
     loss_s = semantic_seg_loss(seg_p, gt['masks_seg'], gt['labels'], gt['valid'],
-                               cfg.semantic_alpha)
+                               cfg.semantic_alpha, total_images=total_images)
     return LossBreakdown(loss_c, loss_b, loss_m, loss_s)

@@ -11,12 +11,19 @@ the device and the rest on the host, as the JAX package does: per-class
 greedy NMS in C++ (`ops/traditional_nms.py`), the masks in numpy, padded into
 the same fixed slate, so the consumers of `__call__` take either.
 
+With a mesh (`parallel/mesh.py::make_mesh`) the Detector keeps one replica
+of the model on each of its devices, splits each batch on its leading axis,
+runs each chunk on its replica's device (the forward and fast NMS, or the
+--traditional_nms forward and decode) and gathers the slates on the first
+device: data-parallel inference, as the JAX package's Detector(mesh=...).
+
 Entry points run on `cuda` unless the caller asks for `device='cpu'`; without
 a card they raise rather than carry on on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import copy
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,12 +50,17 @@ class Detector:
     statistics stay float32; with cfg.compute_dtype 'bfloat16' the network
     runs under bf16 autocast (models/yolact.py). Its four outputs and the
     postprocess are float32 either way.
+
+    `mesh`, a list of devices, replaces `device`: `model` is the replica on
+    the first, and the others are copies of it made here (a later change
+    to `model` does not reach them).
     """
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
-                 device: Union[str, torch.device] = 'cuda', seed: int = 0):
+                 device: Union[str, torch.device] = 'cuda', seed: int = 0,
+                 mesh: Optional[Sequence[torch.device]] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh[0] if mesh else device)
         model = Yolact(cfg)
         if state_dict is None:
             model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -58,6 +70,31 @@ class Detector:
                                      memory_format=torch.channels_last)
         self.anchors = torch.from_numpy(
             make_anchors(cfg.img_size, cfg.aspect_ratios, cfg.scales)).to(self.device)
+        # a Detector on each device of the mesh, this one on the first
+        self.replicas = [self] + [self._replica(dev) for dev in (mesh or [])[1:]]
+
+    def _replica(self, device: torch.device) -> 'Detector':
+        """A copy of this Detector, its model and anchors copied to `device`."""
+        replica = copy.copy(self)
+        replica.device = resolve_device(device)
+        replica.model = copy.deepcopy(self.model).to(replica.device)
+        replica.anchors = self.anchors.to(replica.device)
+        replica.replicas = [replica]
+        return replica
+
+    def _over_mesh(self, images, fn):
+        """fn(replica, rows) for each replica on its rows of the batch (split
+        on the leading axis), the outputs concatenated on the devices of the
+        first replica's; fn(self, images) without a mesh."""
+        n = len(self.replicas)
+        if n == 1:
+            return fn(self, images)
+        if images.shape[0] % n:
+            raise ValueError(f'batch {images.shape[0]} not divisible by mesh size {n}')
+        outs = [fn(r, rows) for r, rows in zip(self.replicas, torch.as_tensor(images).chunk(n))]
+        cat = lambda ts: torch.cat([t.to(ts[0].device) for t in ts])
+        return tuple(Detections(*map(cat, zip(*parts))) if isinstance(parts[0], Detections)
+                     else cat(parts) for parts in zip(*outs))
 
     def _infer(self, images) -> Tuple[Detections, torch.Tensor]:
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
@@ -81,6 +118,9 @@ class Detector:
         """images [B, S, S, 3] normalized RGB -> (Detections, masks_proto
         [B, ph, pw, D] float, proto [B, ph, pw, 32]): on the device for fast
         NMS; CPU tensors of the same shapes with cfg.traditional_nms."""
+        return self._over_mesh(images, Detector._call_one)
+
+    def _call_one(self, images):
         if self.cfg.traditional_nms:
             return self.traditional_tail(*_to_host(self._infer_raw(images)))
         dets, proto = self._infer(images)
@@ -126,6 +166,9 @@ class Detector:
         """Detect with square binarized masks on the device: (Detections,
         bool [B, D, out_size, out_size]). Always fast NMS, whatever
         cfg.traditional_nms says, as the JAX package's detect_fixed."""
+        return self._over_mesh(images, lambda det, rows: det._fixed_one(rows, out_size))
+
+    def _fixed_one(self, images, out_size: int):
         dets, proto = self._infer(images)
         masks = mask_finalize(proto, dets.coefs, dets.boxes, dets.valid,
                               out_size, not self.cfg.no_crop)
@@ -168,11 +211,12 @@ def _to_host(tensors) -> list:
 
 
 def load_detector(weight_path: str, cfg: Optional[Config] = None,
-                  device: Union[str, torch.device] = 'cuda') -> Detector:
+                  device: Union[str, torch.device] = 'cuda',
+                  mesh: Optional[Sequence[torch.device]] = None) -> Detector:
     """A Detector from a `.ckpt` of the JAX package or a reference-format
     `.pth` state_dict, recovering the config from the filename when not
-    given."""
+    given; data-parallel over `mesh` where one is given."""
     if cfg is None:
         cfg = get_config(cfg_name_from_weight(weight_path), mode='detect')
-    resolve_device(device)
-    return Detector(cfg, load_weights_auto(weight_path), device=device)
+    resolve_device(mesh[0] if mesh else device)
+    return Detector(cfg, load_weights_auto(weight_path), device=device, mesh=mesh)

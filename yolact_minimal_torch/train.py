@@ -19,6 +19,16 @@ drawn from seed 0, as the JAX CLI's PRNGKey(0), with the backbone taken from
 where that file exists. --remat recomputes each backbone block's forward in
 the backward (models/yolact.py); --traditional_nms validates with greedy NMS
 on the host.
+
+Several processes train one model on a global batch of --train_bs rows
+when YOLACT_COORDINATOR ('host:port' of process 0), YOLACT_NUM_PROCESSES
+and YOLACT_PROCESS_ID are set in each (or YOLACT_COORDINATOR=auto under
+torchrun): each process builds its train_bs / N rows and works on
+cuda:(process % device_count) (parallel/mesh.py); the step equals the
+one-process step on the global batch. The losses are summed over the
+processes before each log line and non-finite check, so all stop
+together; process 0 alone prints the config and the log, writes
+TensorBoard and the checkpoints and validates, while the others wait.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch
 from yolact_minimal_torch.config import cfg_name_from_weight, get_config
 from yolact_minimal_torch.data.augment import import_cv2
 from yolact_minimal_torch.data.coco import COCODetection, TrainLoader
+from yolact_minimal_torch.parallel import mesh
 from yolact_minimal_torch.pipeline import Detector
 from yolact_minimal_torch.train_state import (create_train_state, fast_forward_schedule,
                                               lr_schedule, opt_state_to_payload,
@@ -104,9 +115,19 @@ def main(argv=None):
                      val_interval=args.val_interval, val_num=args.val_num,
                      coco_api=args.coco_api, compute_dtype=args.compute_dtype,
                      remat=args.remat, traditional_nms=args.traditional_nms, **overrides)
-    device = resolve_device(args.device)
+    # join the process group (if one is configured) before anything else
+    # touches the card
+    if mesh.initialize_distributed(device=args.device):
+        print(f'Joined distributed runtime: process {mesh.process_index()} of '
+              f'{mesh.process_count()}, backend {mesh.dist.get_backend()}, device '
+              f'{mesh.local_device(args.device)}.', flush=True)
+    device = resolve_device(mesh.local_device(args.device))
     import_cv2()                        # the augmentation needs it: say so up front
-    cfg.print_cfg()
+    main_proc = mesh.is_main_process()
+    assert cfg.train_bs % mesh.process_count() == 0, \
+        f'global train_bs {cfg.train_bs} must divide over {mesh.process_count()} processes.'
+    if main_proc:
+        cfg.print_cfg()
     # float32 convolutions in float32, as the JAX package computes them
     torch.backends.cudnn.allow_tf32 = False
 
@@ -130,7 +151,7 @@ def main(argv=None):
         if bw and osp.exists(bw):
             backbone = load_backbone_pth(bw)
             print(f'\nBackbone is initiated with {bw}.\n')
-        else:
+        elif main_proc:
             print(f'\nNo pretrained backbone at {bw!r}; training from random init.\n')
     state = create_train_state(cfg, device, state_dict=state_dict, step=start_step,
                                backbone=backbone)
@@ -139,14 +160,17 @@ def main(argv=None):
         print('Optimizer state (momentum/moments + schedule) restored.')
     elif start_step:
         fast_forward_schedule(state, start_step)
-    n_params = sum(p.numel() for p in state.model.parameters())
-    print(f'Number of all parameters: {n_params}\n')
+    if main_proc:
+        n_params = sum(p.numel() for p in state.model.parameters())
+        print(f'Number of all parameters: {n_params}\n')
 
     dataset = COCODetection(cfg, mode='train')
     loader = TrainLoader(dataset, cfg, batch_size=cfg.train_bs,
-                         num_workers=args.num_workers, seed=0)
+                         num_workers=args.num_workers, seed=0,
+                         process_index=mesh.process_index(),
+                         process_count=mesh.process_count())
     sched = lr_schedule(cfg)
-    writer = _tb_writer(cfg.name)
+    writer = _tb_writer(cfg.name) if main_proc else None
     fence = torch.cuda.synchronize if device.type == 'cuda' else None
 
     step = start_step
@@ -193,13 +217,17 @@ def main(argv=None):
                 time_last = now
 
                 if step % 10 == 0 and step != start_step:
-                    l_c, l_b, l_m, l_s = (float(t) for t in losses)
+                    # the global losses, in every process: all stop together
+                    l_c, l_b, l_m, l_s = mesh.global_sum(torch.stack(losses)).tolist()
                     # a non-finite loss means poisoned weights: keep them for
                     # a post-mortem and stop
                     if not np.isfinite(l_c + l_b + l_m + l_s):
-                        save_latest(_variables(state, with_opt=True), cfg.name + '_nan', step)
+                        if main_proc:
+                            save_latest(_variables(state, with_opt=True), cfg.name + '_nan',
+                                        step)
                         raise FloatingPointError(f'Non-finite loss at step {step}: '
                                                  f'c={l_c} b={l_b} m={l_m} s={l_s}')
+                if step % 10 == 0 and step != start_step and main_proc:
                     cur_lr = sched(step)
                     t_t, t_d, t_s = timer.get_times(['batch', 'data', 'step'])
                     eta = str(datetime.timedelta(seconds=int((end_step - step) * max(t_t, 1e-9))))
@@ -214,7 +242,9 @@ def main(argv=None):
 
                 if cfg.val_interval > 0 and step % cfg.val_interval == 0 and step != start_step:
                     val_step = step
-                    run_validation(step)
+                    if main_proc:
+                        run_validation(step)
+                    mesh.barrier()              # the others wait for process 0
                     timer.reset()
 
                 if step == val_step + 1:
@@ -223,13 +253,16 @@ def main(argv=None):
                 step += 1
                 if step >= end_step:
                     training = False
-                    finish(step)
-                    print('Training completed.')
+                    if main_proc:
+                        finish(step)
+                        print('Training completed.')
                     break
     except KeyboardInterrupt:
-        finish(step)
+        if main_proc:
+            finish(step)
     finally:
         loader.close()
+        mesh.destroy()
 
 
 if __name__ == '__main__':

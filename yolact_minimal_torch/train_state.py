@@ -12,7 +12,14 @@ The port's counterpart of the JAX package's `train_state.py`:
     config asks), the four losses, backward, the optimizer step; BatchNorm
     updates its running statistics in the forward (models/resnet.py). One
     torch.Generator a step, seeded from (seed, step), draws the stochastic
-    depth and the lincomb subsample;
+    depth and the lincomb subsample. In a process group (parallel/mesh.py)
+    each process steps on its rows of the global batch: BatchNorm, the
+    losses' normalizers and the random draws are the global batch's, and
+    the gradients are summed over the world after backward(), since the
+    global loss is the sum of the processes' losses. They are summed by
+    hand rather than by DistributedDataParallel, which averages and
+    reduces in buckets while the backward runs, beside BatchNorm's own
+    collectives;
   * `opt_state_to_payload` / `restore_opt_state` / `fast_forward_schedule`:
     the optimizer state in the layout JAX's `opt_state_to_payload` writes
     for the same optimizer, so a `latest_*.ckpt` resumes in either package.
@@ -29,6 +36,7 @@ from yolact_minimal_torch.config import Config
 from yolact_minimal_torch.models.yolact import Yolact
 from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.ops.losses import LossBreakdown, compute_loss
+from yolact_minimal_torch.parallel import mesh
 from yolact_minimal_torch.utils.device import resolve_device
 from yolact_minimal_torch.utils.weights import (from_jax_variables, graft_backbone,
                                                 to_jax_variables)
@@ -88,7 +96,8 @@ def create_train_state(cfg: Config, device: Union[str, torch.device] = 'cuda', s
     seeded with `seed`, or `state_dict`'s weights (a state_dict without the
     semantic head keeps its init), and a fresh optimizer at `step`.
     `backbone` (from `utils/weights.py::load_backbone_pth`) is laid over the
-    init by `graft_backbone`: strictly for the resnets, leniently for swin."""
+    init by `graft_backbone`: strictly for the resnets, leniently for swin.
+    In a process group every process takes process 0's weights."""
     device = resolve_device(device)
     model = Yolact(cfg, train_mode=True)
     model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -102,6 +111,7 @@ def create_train_state(cfg: Config, device: Union[str, torch.device] = 'cuda', s
             raise KeyError(f'state_dict does not fit {cfg.name}: missing {missing}, '
                            f'unexpected {unexpected}')
     model = model.to(device=device, memory_format=torch.channels_last).train()
+    mesh.broadcast_module(model)
     anchors = torch.from_numpy(make_anchors(cfg.img_size, cfg.aspect_ratios, cfg.scales))
     return TrainState(cfg, model, make_optimizer(cfg, model), anchors.to(device),
                       step=step, seed=seed)
@@ -115,10 +125,11 @@ def step_generator(state: TrainState) -> torch.Generator:
 def train_step(state: TrainState, batch: Dict[str, np.ndarray],
                priorities: Optional[torch.Tensor] = None) -> LossBreakdown:
     """One optimizer step on `batch` (a dict of arrays as `assemble_train_batch`
-    makes them). Returns the four losses, detached. `priorities` replaces
-    the lincomb subsample's random draw (tests)."""
-    dev = state.device
-    gt = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
+    makes them; in a process group this process's rows). Returns the four
+    losses, detached: in a process group this process's parts, which sum
+    to the global losses (`mesh.global_sum`). `priorities` [B_global, A]
+    replaces the lincomb subsample's random draw (tests)."""
+    gt = mesh.shard_batch(batch, state.device)
     image = gt.pop('image')
     lr = lr_schedule(state.cfg)(state.step)
     for group in state.optimizer.param_groups:
@@ -130,6 +141,7 @@ def train_step(state: TrainState, batch: Dict[str, np.ndarray],
                           priorities=priorities)
     state.optimizer.zero_grad(set_to_none=True)
     losses.total.backward()
+    mesh.all_reduce_grads(state.model.parameters())
     state.optimizer.step()
     state.step += 1
     return LossBreakdown(*(t.detach() for t in losses))
