@@ -23,7 +23,9 @@ Phases, in order; any failure exits nonzero:
      timed with events and in device time; the mask
      kernel with its launch geometry on input (a), a fixture with crop, and
      (b), the same without, and after phase 4 on (c), the res50 path's own
-     slate, each timed with events and in device time;
+     slate, each timed with events and in device time; kernels 1 and 2 also
+     beside a composition of PyTorch calls (exact for kernel 1, within the
+     mask mismatch limit for kernel 2), timed;
   3b. the detect CLI (yolact_minimal_torch.detect.main) on two seeded PNGs of
      different shapes with a seeded res50_coco .pth, from a temporary working
      directory: both drawn images must come back at their input shapes;
@@ -59,8 +61,9 @@ Phases, in order; any failure exits nonzero:
      and no other swin kernel, and its float32 network outputs are
      also held to the composed form's on the card. Then each swin stage's
      blocks alone in each form, timed with CUDA events;
-  8. training: (a) kernels 3 and 4 under autograd at swin_tiny's training
-     shapes (544, train_bs 8, bf16): forward and gradients against the plain
+  8. training: (a) kernels 3-6 under autograd at swin_tiny's training
+     shapes (544, train_bs 8, bf16; the block kernels on the shifted windows
+     of the padded map): forward and gradients against the plain
      version's autograd, forward and backward (the plain recompute) timed
      with CUDA events and in device time; (b) res50_coco at 544, train_bs 8
      on custom_dataset/ through the port's TrainLoader, float32 (TF32 off)
@@ -70,7 +73,11 @@ Phases, in order; any failure exits nonzero:
      busy share of one profiled step; (d) `python -m
      yolact_minimal_torch.train` on res50_custom at 256 for 220 steps with a
      validation at step 200: the logged loss falls, both checkpoints are
-     written, the box and mask rows are printed;
+     written, the box and mask rows are printed; (e) swin_tiny_coco in the
+     'mixed' forms: two bf16 steps launching kernels 6 / 5 / 3 / 4 exactly
+     1 / 2 / 9 / 0 times a step with finite losses, then one float32 step
+     against the 'composed' step from the same init (first losses within
+     1e-4, the gradients' distance printed);
   9. export and video: (a) `python -m yolact_minimal_torch.export` on a
      seeded res50_coco .ckpt (544, float32, batch 1) must print the parity
      line, and `python -m yolact_minimal_torch.detect_with_export --image`
@@ -126,11 +133,13 @@ swin_tiny_coco path for kernels 3-4, the 'attn_block' path for kernel 5 and
 the 'whole' path for kernel 6; `launches_by_path` has all six paths (the
 CLI's, res50_coco/cli, and the eval path's, res50_custom/eval, too), and
 for kernels 3-6 the swin artifact's call, swin_tiny_coco/export_mixed.
-Kernels 3 and 4 also carry `train` (their launches a
-training step and, per stage, forward and backward ms under autograd),
-`backward_ms` and `backward_device_ms` (stage 0); `launches_by_path` has the
-three training paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
-swin_tiny_coco/train_bfloat16), and phase 10's: the traditional paths
+Kernels 3-6 also carry `train` (their launches a
+'composed' and a 'mixed' training step and, per stage, forward and backward
+ms under autograd), `backward_ms` and `backward_device_ms` (stage 0) and
+`grad_rel_err` (the worst stage); `launches_by_path` has the four training
+paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
+swin_tiny_coco/train_bfloat16, swin_tiny_coco/train_mixed_bfloat16, over 8,
+8, 8 and 2 steps), and phase 10's: the traditional paths
 (res50_custom/eval_traditional, res50_coco/cli_traditional,
 swin_tiny_coco/traditional) and the remat pairs
 ({res50_coco,swin_tiny_coco}/train_{plain,remat}_bfloat16, over 6 steps), and phase 11's:
@@ -228,6 +237,13 @@ TRAIN_STEPS = 6
 TRAIN_WORKERS = 6
 TRAIN_CLI_IMG, TRAIN_CLI_STEPS, TRAIN_CLI_VAL = 256, 220, 200
 TRAIN_LAUNCHES_PER_STEP = {'window_attention': 12, 'swin_mlp': 1}
+# The 'mixed' forms in training, as the JAX block routes them: stage 0 'whole'
+# runs kernel 6 in block 0 (rate 0) and falls back to kernel 3 and the plain
+# MLP in block 1; stage 1 'attn_block' runs kernel 5 in both blocks; stages
+# 2-3 'composed' run kernel 3 in their 8 blocks; kernel 4 nowhere (every
+# block after block 0 has a nonzero drop_path rate).
+MIXED_TRAIN_LAUNCHES_PER_STEP = {'swin_block': 1, 'attn_block': 2, 'window_attention': 9,
+                                 'swin_mlp': 0}
 # Float32 network outputs of two block forms on the card: the same function
 # up to summation order, each output within 1e-4 of its largest magnitude.
 FORM_REL_TOL = 1e-4
@@ -398,12 +414,31 @@ def _hold_suppression(what, args, got, timed=True):
                 bound_by=by, pairs=pairs, max_abs_err=err)
 
 
+def _suppression_composition(x1, y1, x2, y2, valid):
+    """Kernel 1's function as PyTorch calls on the planes: pairwise IoU by
+    broadcasting, invalid pairs 0, the strict upper triangle, amax over the
+    higher-scored axis. The same arithmetic in the same order as the plain
+    version (box_iou on stacked boxes), so held to it exactly."""
+    import torch
+    lo = lambda a: a[:, :, None]
+    hi = lambda a: a[:, None, :]
+    iw = (torch.minimum(lo(x2), hi(x2)) - torch.maximum(lo(x1), hi(x1))).clamp(min=0.0)
+    ih = (torch.minimum(lo(y2), hi(y2)) - torch.maximum(lo(y1), hi(y1))).clamp(min=0.0)
+    inter = iw * ih
+    area = (x2 - x1) * (y2 - y1)
+    iou = inter / (lo(area) + hi(area) - inter)
+    iou = iou.masked_fill(~(lo(valid) & hi(valid)), 0.0).triu(diagonal=1)
+    return iou.amax(dim=1)
+
+
 def check_suppression(dev):
     """Kernel 1 at [B*C, K] = [1280, 200] on input (a), the fixture with
     zero-area and invalid candidates, and (b), all valid; must equal the plain
     version exactly on both, NaN positions too. Prints the launch geometry
-    and each input's event and device time. Phase 3c adds input (c), the
-    planes the eval path gave the kernel."""
+    and each input's event and device time, and on (a) a composition of
+    PyTorch calls (`_suppression_composition`), held exactly to the plain
+    version and timed. Phase 3c adds input (c), the planes the eval path gave
+    the kernel."""
     import torch
     from yolact_minimal_torch.ops.suppression import (kernel_geometry, suppression_iou_max,
                                                       suppression_iou_max_plain)
@@ -423,6 +458,15 @@ def check_suppression(dev):
           f'{geo["blocks_per_sm"]} resident a multiprocessor, {geo["registers"]} registers, '
           f'{geo["spill_bytes"]} B spill')
     a = inputs['a_fixture']
+    args = _suppression_inputs(dev, False)
+    comp, ref = _suppression_composition(*args), suppression_iou_max_plain(*args)
+    finite = ~torch.isnan(ref)
+    _check(torch.equal(torch.isnan(comp), ~finite) and torch.equal(comp[finite], ref[finite]),
+           'kernel 1: the PyTorch composition disagrees with the plain version on (a)')
+    composition_ms = _time_ms(lambda: _suppression_composition(*args))
+    composition_device_ms = _device_ms(lambda: _suppression_composition(*args))
+    print(f'  composition (broadcast IoU, triu, amax) on (a): exact against the plain version, '
+          f'{composition_ms:.4f} ms, device {composition_device_ms:.4f} ms')
     return dict(name='suppression_iou_max', route='cuda',
                 source='yolact_minimal_torch/csrc/suppression.cu',
                 replaces='yolact_minimal_tpu/ops/pallas_nms.py:67',
@@ -430,7 +474,11 @@ def check_suppression(dev):
                 agreement='exact, NaN positions equal, on inputs (a) and (b)',
                 ms=a['ms'], kernel_ms=a['ms'], device_ms=a['device_ms'], plain_ms=a['plain_ms'],
                 bound_ms=a['bound_ms'], bound_by=a['bound_by'], peak=FP32_PEAK,
-                library_ms=None, geometry=geo, inputs=inputs)
+                library_ms=None, composition_ms=composition_ms,
+                composition_device_ms=composition_device_ms,
+                library='none (no single PyTorch call); composition_ms on (a): broadcast IoU '
+                        '-> masked_fill -> triu -> amax, exact against the plain version',
+                geometry=geo, inputs=inputs)
 
 
 def _mask_fixture(dev):
@@ -485,6 +533,29 @@ def _time_mask(what, proto, coefs, boxes, valid, do_crop):
     return ms, dev_ms
 
 
+def _mask_composition(proto, coefs, boxes, valid, out_size):
+    """Kernel 2's function (with crop) as PyTorch calls: bmm, sigmoid, the
+    box crop and validity as one mask, F.interpolate (bilinear,
+    align_corners=False), > 0.5. The plain version takes a broadcast matmul
+    and the port's own bilinear resize, so the two may differ where a value
+    sits at 0.5: held to the mismatch fraction the kernel is held to."""
+    import torch
+    import torch.nn.functional as F
+    from yolact_minimal_torch.ops.boxes import sanitize_coordinates
+    b, ph, pw, c = proto.shape
+    masks = torch.sigmoid(torch.bmm(coefs, proto.reshape(b, ph * pw, c).transpose(1, 2)))
+    x1, x2 = sanitize_coordinates(boxes[..., 0], boxes[..., 2], pw, 1)
+    y1, y2 = sanitize_coordinates(boxes[..., 1], boxes[..., 3], ph, 1)
+    cols = torch.arange(pw, dtype=torch.float32, device=proto.device)
+    rows = torch.arange(ph, dtype=torch.float32, device=proto.device)[:, None]
+    box = lambda t: t[..., None, None]
+    keep = (cols >= box(x1)) & (cols < box(x2)) & (rows >= box(y1)) & (rows < box(y2)) & \
+        box(valid)
+    masks = masks.reshape(b, -1, ph, pw) * keep
+    return F.interpolate(masks, size=(out_size, out_size), mode='bilinear',
+                         align_corners=False) > 0.5
+
+
 def check_mask_finalize(dev):
     """Kernel 2 at B=16, D=100, proto 136x136x32 -> 544x544: input (a), the
     fixture with crop, and (b), the same without crop; mismatch fraction vs
@@ -511,6 +582,15 @@ def check_mask_finalize(dev):
                                           False)
     args = (proto, coefs, boxes, valid, IMG, True)
     plain_ms = _time_ms(lambda: mask_finalize_plain(*args), warmup=1)
+    comp_mismatch = (_mask_composition(*args[:5]) !=
+                     mask_finalize_plain(*args)).float().mean().item()
+    _check(comp_mismatch < MASK_MISMATCH, f'kernel 2: the PyTorch composition mismatches the '
+                                         f'plain version on {comp_mismatch} of the pixels')
+    composition_ms = _time_ms(lambda: _mask_composition(*args[:5]))
+    composition_device_ms = _device_ms(lambda: _mask_composition(*args[:5]))
+    print(f'  composition (bmm, sigmoid, crop, F.interpolate, > 0.5) on (a): mismatch '
+          f'{comp_mismatch:.3g} against the plain version, {composition_ms:.4f} ms, device '
+          f'{composition_device_ms:.4f} ms')
     # bytes: proto, coefs, boxes, valid read once; the bool masks written once.
     n_bytes = proto.numel() * 4 + coefs.numel() * 4 + boxes.numel() * 4 + \
         valid.numel() + BATCH * SLOTS * IMG * IMG
@@ -534,7 +614,11 @@ def check_mask_finalize(dev):
                 agreement=f'mismatch fraction {worst:.3g} < {MASK_MISMATCH} on inputs (a) '
                           f'and (b), and on (c) after phase 4',
                 ms=ms, kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, peak=FP32_PEAK, library_ms=None, geometry=geo,
+                bound_by=by, peak=FP32_PEAK, library_ms=None, composition_ms=composition_ms,
+                composition_device_ms=composition_device_ms,
+                composition_mismatch_frac=comp_mismatch,
+                library='none (no single PyTorch call); composition_ms on (a): bmm -> sigmoid '
+                        '-> crop -> F.interpolate -> > 0.5', geometry=geo,
                 inputs={'a_crop': {'ms': ms, 'device_ms': dev_ms},
                         'b_no_crop': {'ms': nocrop_ms, 'device_ms': nocrop_dev_ms}})
 
@@ -1662,19 +1746,24 @@ def phase_eval(dev, smi, kernel1):
 # --- phase 8: training ----------------------------------------------------------
 
 def check_train_autograd(dev):
-    """Kernels 3 and 4 under autograd at swin_tiny's training shapes (544,
+    """Kernels 3-6 under autograd at swin_tiny's training shapes (544,
     train_bs 8), bf16: the kernel forward and its backward (the plain
     version recomputed under autograd) against the plain version's forward
     and autograd on the same inputs and cotangent; forward and backward
-    timed with CUDA events and in device time. Returns {kernel: per-stage
+    timed with CUDA events and in device time. The block kernels take the
+    shifted windows of the stage's padded map (region and rowmask), weights
+    in bf16 as models/swin.py hands them over. Returns {kernel: per-stage
     list}."""
     import torch
-    from yolact_minimal_torch.models.swin import shifted_window_regions
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
+    from yolact_minimal_torch.ops.swin_block import swin_block, swin_block_plain
     from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain
     from yolact_minimal_torch.ops.window_attention import window_attention, window_attention_plain
     g = torch.Generator(device=dev).manual_seed(8)
+    g_blocks = torch.Generator(device=dev).manual_seed(9)
     bf16 = torch.bfloat16
-    out = {'window_attention': [], 'swin_mlp': []}
+    out = {'window_attention': [], 'swin_mlp': [], 'attn_block': [], 'swin_block': []}
 
     def held(name, stage, fn, plain, inputs, cot):
         """Forward and gradients of fn against plain's; returns the worst
@@ -1704,10 +1793,11 @@ def check_train_autograd(dev):
               f'{worst:.3g} of max |plain| (<= {SWIN_BF16_REL_TOL:.3g})')
         return times
 
-    print('phase 8a: kernels 3 and 4 under autograd at the training shapes (544, train_bs 8)')
+    print('phase 8a: kernels 3-6 under autograd at the training shapes (544, train_bs 8)')
     for stage, (bnw, nw, c, heads, rows) in enumerate(TRAIN_SWIN_STAGES):
-        side = int(round(nw ** 0.5)) * 7
-        region = torch.from_numpy(shifted_window_regions(side, side)).to(dev)
+        side, padded = SWIN_MAPS[stage]
+        region = torch.from_numpy(shifted_window_regions(padded, padded)).to(dev)
+        rowmask = torch.from_numpy(pad_rowmask(side, side, padded, padded, 3)).to(dev)
         qkv = torch.randn(bnw, 49, 3 * c, device=dev, generator=g).to(bf16)
         bias = (torch.randn(heads, 49, 49, device=dev, generator=g) * 0.1).to(bf16)
         cot = torch.randn(bnw, 49, c, device=dev, generator=g).to(bf16)
@@ -1716,12 +1806,28 @@ def check_train_autograd(dev):
         out['window_attention'].append(dict(shape=[bnw, 49, 3 * c], heads=heads, **t))
         x = torch.randn(rows, c, device=dev, generator=g).to(bf16)
         f32 = lambda *s, scale=0.05: torch.randn(*s, device=dev, generator=g) * scale
-        params = (f32(c, scale=0.1) + 1.0, f32(c, scale=0.1), f32(4 * c, c).to(bf16),
-                  f32(4 * c), f32(c, 4 * c).to(bf16), f32(c))
-        cot = torch.randn(rows, c, device=dev, generator=g).to(bf16)
-        t = held('swin_mlp', stage, mlp_block, mlp_block_plain, (x,) + params, cot)
+        ln = (f32(c, scale=0.1) + 1.0, f32(c, scale=0.1))
+        mlp = (f32(4 * c, c).to(bf16), f32(4 * c), f32(c, 4 * c).to(bf16), f32(c))
+        t = held('swin_mlp', stage, mlp_block, mlp_block_plain, (x,) + ln + mlp,
+                 torch.randn(rows, c, device=dev, generator=g).to(bf16))
         out['swin_mlp'].append(dict(shape=[rows, c], **t))
-        del qkv, bias, x, params, cot
+        # kernels 5 and 6 draw from their own generator: kernels 3 and 4 keep their inputs
+        f32 = lambda *s, scale=0.05: torch.randn(*s, device=dev, generator=g_blocks) * scale
+        x = torch.randn(bnw, 49, c, device=dev, generator=g_blocks).to(bf16)
+        attn = (f32(3 * c, c).to(bf16), f32(3 * c), bias, f32(c, c).to(bf16), f32(c))
+        t = held('attn_block', stage,
+                 lambda x, wq, bq, b, wp, bp: attn_block(x, wq, bq, b, region, wp, bp, heads),
+                 lambda x, wq, bq, b, wp, bp: attn_block_plain(x, wq, bq, b, region, wp, bp,
+                                                               heads), (x,) + attn, cot)
+        out['attn_block'].append(dict(shape=[bnw, 49, c], heads=heads, **t))
+
+        def whole(f):
+            return lambda x, l1s, l1b, wq, bq, b, wp, bp, *rest: f(
+                x, rowmask, l1s, l1b, wq, bq, b, region, wp, bp, *rest, heads)
+        t = held('swin_block', stage, whole(swin_block), whole(swin_block_plain),
+                 (x,) + ln + attn + ln + mlp, cot)
+        out['swin_block'].append(dict(shape=[bnw, 49, c], heads=heads, **t))
+        del qkv, bias, x, ln, mlp, attn, cot
         torch.cuda.empty_cache()
     return out
 
@@ -1825,6 +1931,83 @@ def phase_train_path(dev, name, dtype, batches, smi):
     return launches, numbers
 
 
+def phase_train_mixed(dev, batches, smi):
+    """8e: swin_tiny_coco at IMG, train_bs TRAIN_BS in the 'mixed' forms
+    (kernels 6 and 5 under autograd in a training step). bf16: two steps
+    (the first warm-up), the counters set to 0 before and read after, each
+    step launching exactly MIXED_TRAIN_LAUNCHES_PER_STEP, losses finite, the
+    second step timed. float32 (TF32 off): one step in 'mixed' and one in
+    'composed' from the same seeded init on the same batch and step
+    generator; the first losses within FORM_REL_TOL of each other, the
+    gradients' distance printed. Returns (launches, numbers)."""
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.train_state import create_train_state, train_step
+    mixed = SWIN_PATHS['mixed']
+    name = 'swin_tiny_coco'
+    cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS,
+                     compute_dtype='bfloat16')
+    state = create_train_state(cfg, dev, seed=0)
+    state.model.backbone.set_block_forms(mixed)
+    counters = _counters(name)
+    for fn in counters.values():
+        fn.launches = 0
+    totals = [float(train_step(state, batches[0]).total)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    totals.append(float(train_step(state, batches[1]).total))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 2 * n for k, n in MIXED_TRAIN_LAUNCHES_PER_STEP.items()}
+    _check(all(math.isfinite(t) for t in totals), f'{name} mixed bf16: non-finite loss {totals}')
+    _check({k: launches[k] for k in want} == want and launches['suppression_iou_max'] == 0 and
+           launches['mask_finalize'] == 0, f'{name} mixed train: expected {want} launches over '
+           f'2 steps, got {launches}')
+    print(f'8e. {name} train bfloat16 {IMG}/b{TRAIN_BS} in the forms {mixed}: the second step '
+          f'{step_ms:.3f} ms (host clock to a synchronize), total loss {totals[0]:.4f} -> '
+          f'{totals[1]:.4f}; launches over 2 steps {launches} (a step: '
+          f'{MIXED_TRAIN_LAUNCHES_PER_STEP}); on {smi}')
+    del state
+    torch.cuda.empty_cache()
+    cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS, compute_dtype='float32')
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for forms in ('composed', mixed):
+            state = create_train_state(cfg, dev, seed=0)
+            state.model.backbone.set_block_forms(forms)
+            runs[forms] = (train_step(state, batches[0]),
+                           {k: p.grad for k, p in state.model.named_parameters()
+                            if p.grad is not None})
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (ref, ref_g), (got, got_g) = runs['composed'], runs[mixed]
+    rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, ref)]
+    _check(max(rel) <= FORM_REL_TOL, f'{name} float32 mixed step: losses {[float(t) for t in got]}'
+           f' against composed {[float(t) for t in ref]} ({max(rel):.3g} > {FORM_REL_TOL})')
+    _check(got_g.keys() == ref_g.keys(), f'{name} float32: the forms reach other parameters')
+    # in float64: the sums of squares of some gradients overflow float32
+    per_tensor = {k: ((got_g[k].double() - g.double()).norm() / g.double().norm()).item()
+                  for k, g in ref_g.items()}
+    total = math.sqrt(sum(((got_g[k].double() - g.double()) ** 2).sum().item()
+                          for k, g in ref_g.items()) /
+                      sum((g.double() ** 2).sum().item() for g in ref_g.values()))
+    worst = max(per_tensor, key=per_tensor.get)
+    backbone = max(v for k, v in per_tensor.items() if k.startswith('backbone.'))
+    print(f'8e. {name} train float32 (TF32 off), one step in {mixed} against composed from the '
+          f'same init and batch: losses within {max(rel):.3g} relative (<= {FORM_REL_TOL}); '
+          f'gradients {total:.3g} of their L2 norm apart, the backbone\'s tensors at most '
+          f'{backbone:.3g}, the worst tensor {worst} {per_tensor[worst]:.3g}')
+    return launches, dict(ms_bf16_second_step=step_ms, losses_bf16=totals,
+                          float32_loss_rel=max(rel), float32_grad_rel=total,
+                          float32_grad_rel_backbone=backbone,
+                          float32_grad_rel_worst={worst: per_tensor[worst]})
+
+
 def phase_train_cli(smi):
     """`python -m yolact_minimal_torch.train` as a user runs it: res50_custom
     at TRAIN_CLI_IMG, train_bs 8, lr 2e-4, TRAIN_CLI_STEPS steps with one
@@ -1890,9 +2073,11 @@ def phase_train(dev, smi, kernels, batches):
     for k in kernels:
         if k['name'] in auto:
             k['train'] = dict(per_stage=auto[k['name']],
-                              launches_per_step=TRAIN_LAUNCHES_PER_STEP[k['name']])
+                              launches_per_step=TRAIN_LAUNCHES_PER_STEP.get(k['name'], 0),
+                              launches_per_step_mixed=MIXED_TRAIN_LAUNCHES_PER_STEP[k['name']])
             k['backward_ms'] = auto[k['name']][0]['backward_ms']
             k['backward_device_ms'] = auto[k['name']][0]['backward_device_ms']
+            k['grad_rel_err'] = max(t['grad_rel_err'] for t in auto[k['name']])
     by_path, numbers = {}, {}
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False      # float32 convolutions in float32
@@ -1903,6 +2088,8 @@ def phase_train(dev, smi, kernels, batches):
             by_path[path], numbers[path] = phase_train_path(dev, name, dtype, batches, smi)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    path = 'swin_tiny_coco/train_mixed_bfloat16'
+    by_path[path], numbers[path] = phase_train_mixed(dev, batches, smi)
     numbers['cli'] = phase_train_cli(smi)
     print(f'train phase: {time.perf_counter() - t_phase:.2f} s')
     return by_path, numbers

@@ -597,6 +597,67 @@ def test_swin_mlp_autograd_equals_plain(card, dtype, tol, bnw, nw, heads, rows):
         _assert_close_rel(got, ref, tol)
 
 
+def _train_block_case(card, dtype, bnw, nw, heads, seed):
+    """Kernels 5 and 6's inputs at a training stage shape as models/swin.py
+    hands them over (weights in the compute dtype), the shifted windows of a
+    map padded by one row and column, and a cotangent."""
+    from yolact_minimal_torch.models.swin import pad_rowmask, shifted_window_regions
+    rng = np.random.RandomState(seed)
+    c, side = heads * 32, int(nw ** 0.5) * 7
+    dev = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(card)
+    region = torch.from_numpy(shifted_window_regions(side, side)).to(card)
+    rowmask = torch.from_numpy(pad_rowmask(side - 1, side - 1, side, side, 3)).to(card)
+    ln = (1 + dev(c, scale=0.1), dev(c, scale=0.1))
+    attn = (dev(3 * c, c, scale=c ** -0.5).to(dtype), dev(3 * c, scale=0.05),
+            dev(heads, 49, 49, scale=0.1).to(dtype), dev(c, c, scale=c ** -0.5).to(dtype),
+            dev(c, scale=0.05))
+    mlp = (dev(4 * c, c, scale=c ** -0.5).to(dtype), dev(4 * c, scale=0.05),
+           dev(c, 4 * c, scale=(4 * c) ** -0.5).to(dtype), dev(c, scale=0.05))
+    return dev(bnw, 49, c).to(dtype), region, rowmask, ln, attn, mlp, dev(bnw, 49, c).to(dtype)
+
+
+def _hold_block_autograd(wrapper, plain, call, inputs, cot, dtype, tol):
+    """call(f, *inputs) with f the kernel's wrapper and then its plain
+    version: the kernel forward within `tol` of the plain one, one launch;
+    its backward, the plain version recomputed under autograd, equal to
+    plain autograd's bit for bit, in each input's dtype."""
+    results = []
+    for fn in (wrapper, plain):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        before = wrapper.launches
+        out = call(fn, *leaves)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + (fn is wrapper)
+        results.append((out.detach(), [t.grad for t in leaves]))
+    (out, grads), (ref, ref_grads) = results
+    assert out.dtype == ref.dtype == dtype
+    _assert_close_rel(out, ref, tol)
+    for t, g, r in zip(inputs, grads, ref_grads):
+        assert g.dtype == t.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('bnw,nw,heads,rows', TRAIN_STAGES)
+def test_attn_block_autograd_equals_plain(card, dtype, tol, bnw, nw, heads, rows):
+    x, region, _, _, attn, _, cot = _train_block_case(card, dtype, bnw, nw, heads, 4)
+    _hold_block_autograd(
+        attn_block, attn_block_plain,
+        lambda f, x, wq, bq, b, wp, bp: f(x, wq, bq, b, region, wp, bp, heads),
+        (x,) + attn, cot, dtype, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+@pytest.mark.parametrize('bnw,nw,heads,rows', TRAIN_STAGES)
+def test_swin_block_autograd_equals_plain(card, dtype, tol, bnw, nw, heads, rows):
+    x, region, rowmask, ln, attn, mlp, cot = _train_block_case(card, dtype, bnw, nw, heads, 5)
+    _hold_block_autograd(
+        swin_block, swin_block_plain, lambda f, x, l1s, l1b, wq, bq, b, wp, bp, *rest:
+        f(x, rowmask, l1s, l1b, wq, bq, b, region, wp, bp, *rest, heads),
+        (x,) + ln + attn + ln + mlp, cot, dtype, tol)
+
+
 def _res50_train_case():
     """res50_custom at 128, train_bs 2, and one seeded batch of distinct
     rows (tests/test_torch_train_step.py's)."""
@@ -807,28 +868,29 @@ def _op_args(name, dev, dtype, grad=False):
     attn = (r(3 * c, c, scale=0.05).to(dtype), r(3 * c, scale=0.05), bias, region,
             r(c, c, scale=0.05).to(dtype), r(c, scale=0.05))
     leaf = lambda t: t.requires_grad_() if grad else t
+    leaves = lambda ts: tuple(leaf(t) if t is not None and t.is_floating_point() else t
+                              for t in ts)
     return {'window_attention': lambda: (leaf(r(8, 49, 3 * c).to(dtype)), leaf(bias.clone()),
                                          region, heads),
             'mlp_block': lambda: tuple(leaf(t) for t in (r(288, c).to(dtype),) + ln + mlp),
-            'attn_block': lambda: (r(8, 49, c).to(dtype),) + attn + (heads,),
-            'swin_block': lambda: (r(8, 49, c).to(dtype), rowmask) + ln + attn + ln + mlp +
-            (heads,)}[name]()
+            'attn_block': lambda: leaves((r(8, 49, c).to(dtype),) + attn) + (heads,),
+            'swin_block': lambda: (leaf(r(8, 49, c).to(dtype)), rowmask) +
+            leaves(ln + attn + ln + mlp) + (heads,)}[name]()
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize('name', ['window_attention', 'mlp_block', 'attn_block', 'swin_block'])
 def test_registered_op_on_the_card_passes_opcheck(card, name, dtype):
     """Each operator's CUDA implementation against its fake (shape, dtype and
-    strides of the output) and its schema; kernels 3 and 4 also with inputs
-    that need a gradient. The operator launches the kernel once a call and
-    gives the wrapper's bits."""
+    strides of the output) and its schema, also with inputs that need a
+    gradient. The operator launches the kernel once a call and gives the
+    wrapper's bits."""
     wrapper = {'window_attention': window_attention, 'mlp_block': mlp_block,
                'attn_block': attn_block, 'swin_block': swin_block}[name]
     op = getattr(torch.ops.yolact_torch, name)
-    cases = [(_op_args(name, card, dtype), ('test_schema', 'test_faketensor'))]
-    if name in ('window_attention', 'mlp_block'):
-        cases.append((_op_args(name, card, dtype, grad=True),
-                      ('test_schema', 'test_faketensor', 'test_autograd_registration')))
+    cases = [(_op_args(name, card, dtype), ('test_schema', 'test_faketensor')),
+             (_op_args(name, card, dtype, grad=True),
+              ('test_schema', 'test_faketensor', 'test_autograd_registration'))]
     for args, utils in cases:
         result = torch.library.opcheck(op, args, test_utils=utils)
         assert set(result.values()) == {'SUCCESS'}, result

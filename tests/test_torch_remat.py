@@ -36,12 +36,14 @@ def _batch(seed, b, g, img):
                 masks_seg=(rng.rand(b, g, img // 8, img // 8) > 0.5).astype(np.uint8))
 
 
-def _step(name, use_remat, monkeypatch):
-    """One step from the seed-0 init: (losses, gradients, state_dict after,
-    the step generator's state after, block forwards run, of them in a
-    recompute)."""
+def _step(name, use_remat, monkeypatch, forms=None):
+    """One step from the seed-0 init, swin in `forms` where given: (losses,
+    gradients, state_dict after, the step generator's state after, block
+    forwards run, of them in a recompute)."""
     cfg = get_config(name, mode='train', img_size=IMG, max_gt=4, train_bs=2, remat=use_remat)
     state = TS.create_train_state(cfg, 'cpu', seed=0)
+    if forms is not None:
+        state.model.backbone.set_block_forms(forms)
     gens, calls = [], [0, 0]
     step_generator = TS.step_generator
     monkeypatch.setattr(TS, 'step_generator', lambda s: gens.append(step_generator(s)) or gens[-1])
@@ -79,6 +81,25 @@ def test_remat_step_equals_the_plain_step(name, blocks, monkeypatch):
         model = TS.create_train_state(get_config(name, mode='train', img_size=IMG),
                                       'cpu').model
         assert max(b.drop_path_rate for s in model.backbone.layers for b in s.blocks) > 0
+
+
+def test_remat_step_in_the_fused_forms_equals_the_plain_step(monkeypatch):
+    """swin with stage 0 in 'whole' (kernel 6 in block 0, the two halves in
+    block 1, whose drop_path rate is nonzero) and stage 1 in 'attn_block'
+    (kernel 5): the recompute replays each block through the same operators
+    and draws, so the remat step is the plain step bit for bit."""
+    forms = ('whole', 'attn_block', 'composed', 'composed')
+    plain = _step('swin_tiny_custom', False, monkeypatch, forms)
+    ours = _step('swin_tiny_custom', True, monkeypatch, forms)
+    assert plain[4] == [12, 0] and ours[4] == [24, 12]
+    for got, want in zip(ours[0], plain[0]):
+        assert torch.equal(got, want)
+    assert ours[1].keys() == plain[1].keys()
+    for k, g in plain[1].items():
+        assert g is not None and torch.equal(ours[1][k], g), k
+    for k, v in plain[2].items():
+        assert torch.equal(ours[2][k], v), k
+    assert torch.equal(ours[3], plain[3])
 
 
 def test_remat_runs_only_when_training_with_grad():

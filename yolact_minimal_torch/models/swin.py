@@ -28,15 +28,18 @@ data-independent numpy tables.
 a copy cast once for calls that need no gradient; LayerNorm runs in float32
 and rounds its result, as flax's `LayerNorm(dtype=...)` does.
 
-Training (the module in train mode) runs the 'composed' form only, as the
-JAX package does: kernel 3 and, in blocks without stochastic depth, kernel
-4, each under autograd (their backward recomputes the plain version).
+Training (the module in train mode) runs every form under autograd, as the
+JAX block does; each kernel's backward recomputes its plain version.
 Stochastic depth (`drop_path`, rates by linspace to `drop_path_rate` over the
 12 blocks) draws one keep bit a sample from the generator the forward is
 given; a block with a nonzero rate runs its MLP half in plain ops, as the
-JAX block does. With `remat` each block is recomputed in the backward
-(`models/remat.py`, which replays its drop_path draws); the patch embed,
-PatchMerging and the output norms stay outside, as in the JAX package.
+JAX block does. So in training 'whole' runs kernel 6 only in blocks whose
+rate is 0 and falls back to kernel 3 and the plain MLP elsewhere;
+'attn_block' runs kernel 5 in every block and kernel 4 where the rate is 0;
+'composed' runs kernel 3 in every block and kernel 4 where the rate is 0.
+With `remat` each block is recomputed in the backward (`models/remat.py`,
+which replays its drop_path draws); the patch embed, PatchMerging and the
+output norms stay outside, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -90,7 +93,12 @@ def shifted_window_regions(hp: int, wp: int, window: int = WINDOW,
 @functools.lru_cache(maxsize=None)
 def _cached_table(make, args: tuple, device: torch.device) -> Optional[torch.Tensor]:
     table = make(*args)
-    return None if table is None else torch.from_numpy(np.ascontiguousarray(table)).to(device)
+    if table is None:
+        return None
+    # never an inference tensor, even when an inference-mode forward makes it
+    # first: the whole-block backward saves the rowmask for autograd
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(table)).to(device)
 
 
 def _table_on(make, *args, device: torch.device) -> Optional[torch.Tensor]:
@@ -266,7 +274,9 @@ class SwinBlock(nn.Module):
     to a multiple of the window with zeros AFTER norm1, and the regions are
     those of the padded size. `fused_attn_block` and `fused_whole` pick the
     form (module docstring); the parameters are the same in all three.
-    `drop_path_rate` is the block's stochastic depth in training."""
+    `drop_path_rate` is the block's stochastic depth in training; at a
+    nonzero rate a `fused_whole` block trains through the two halves, as the
+    JAX block does."""
 
     def __init__(self, dim: int, num_heads: int, shift: int,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
@@ -305,12 +315,9 @@ class SwinBlock(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
-        if self.training and (self.fused_whole or self.fused_attn_block):
-            raise NotImplementedError('swin trains in the composed form only: the '
-                                      "'attn_block' and 'whole' kernels have no backward")
-        if self.fused_whole:
-            return self._whole(x)
         rate = self.drop_path_rate if self.training else 0.0
+        if self.fused_whole and rate == 0.0:
+            return self._whole(x)
         shortcut = x
         x = _layer_norm(x, self.norm1, self.dtype)
         windows, hp, wp, region = self._to_windows(x)

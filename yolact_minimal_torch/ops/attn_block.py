@@ -7,8 +7,10 @@ with `attention` the per-window, per-head softmax of `ops/window_attention.py`.
 `attn_block` launches the hand-written CUDA kernel (`csrc/attn_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `attn_block_plain`,
 for tensors on the CPU, through the registered operator
-`yolact_torch::attn_block` (no backward), so that `torch.export` records the
-call. It counts its kernel launches in `attn_block.launches`.
+`yolact_torch::attn_block`, so that `torch.export` records the call. Its
+backward, as the JAX package's custom_vjp `_block_bwd`, recomputes the plain
+version under autograd (gradients of x, wqkv, bqkv, bias, wproj and bproj;
+none of region). It counts its kernel launches in `attn_block.launches`.
 `kernel_geometry` states the bf16 launch's grids (tiles of windows on
 persistent blocks at C = 96; two phases at C = 192, 384 and 768: a block per
 head and chunk of windows, then persistent blocks over 64-row tiles of the
@@ -288,6 +290,33 @@ def _attn_block_op(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, bias
 @_attn_block_op.register_fake
 def _(x, wqkv, bqkv, bias, region, wproj, bproj, heads):
     return torch.empty_like(x)
+
+
+def register_plain_backward(op, plain, differentiable):
+    """Give the registered operator `op` the backward of the JAX package's
+    custom_vjps: `plain` recomputed under autograd, in float32 where it
+    computes in float32 (autocast off). The inputs at the positions
+    `differentiable` are saved and take gradients, in their own dtype and
+    shape; the others (tables, ints) are kept as they are and take none."""
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*(inputs[i] for i in differentiable))
+        ctx.inputs = [None if i in differentiable else t for i, t in enumerate(inputs)]
+
+    def backward(ctx, grad):
+        args = list(ctx.inputs)
+        with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
+            for i, t in zip(differentiable, ctx.saved_tensors):
+                args[i] = t.detach().requires_grad_(ctx.needs_input_grad[i])
+            wanted = [i for i in differentiable if args[i].requires_grad]
+            grads = torch.autograd.grad(plain(*args), [args[i] for i in wanted], grad)
+        grads = dict(zip(wanted, grads))
+        return tuple(grads.get(i) for i in range(len(args)))
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+# gradients for all inputs but region (4) and heads (7)
+register_plain_backward(_attn_block_op, attn_block_plain, (0, 1, 2, 3, 5, 6))
 
 
 attn_block.launches = 0

@@ -11,8 +11,11 @@ attended to; the caller crops its output row.
 `swin_block` launches the hand-written CUDA kernel (`csrc/swin_block.cu`) for
 tensors on the card and runs the plain PyTorch version, `swin_block_plain`,
 for tensors on the CPU, through the registered operator
-`yolact_torch::swin_block` (no backward), so that `torch.export` records the
-call; the scratch and the grids stay inside the operator's CUDA side. It
+`yolact_torch::swin_block`, so that `torch.export` records the call; the
+scratch and the grids stay inside the operator's CUDA side. Its backward, as
+the JAX package's custom_vjp `_bwd`, recomputes the plain version under
+autograd (gradients of x and the 13 parameters; none of rowmask or region):
+it needs no scratch. It
 counts its calls that launch the kernels in `swin_block.launches` (one a
 call, whatever the launches in it).
 `kernel_geometry` fixes the bf16 launches' grids, which the wrapper passes
@@ -48,7 +51,8 @@ from yolact_minimal_torch.ops import _build
 from yolact_minimal_torch.ops import attn_block as attn_ops
 from yolact_minimal_torch.ops.attn_block import (Geometry, HeadGeometry, check_kernel_shape,
                                                  check_params, check_per_window, check_windows,
-                                                 head_geometry, tiled_geometry)
+                                                 head_geometry, register_plain_backward,
+                                                 tiled_geometry)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS
 from yolact_minimal_torch.ops.window_attention import _sm_count, window_attention_plain
 
@@ -318,6 +322,11 @@ def _swin_block_op(x: torch.Tensor, rowmask: Optional[torch.Tensor], ln1_scale: 
 def _(x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region, wproj, bproj, ln2_scale,
       ln2_bias, k1, b1, k2, b2, heads):
     return torch.empty_like(x)
+
+
+# gradients for all inputs but rowmask (1), region (7) and heads (16)
+register_plain_backward(_swin_block_op, swin_block_plain,
+                        (0, 2, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15))
 
 
 swin_block.launches = 0
