@@ -1,0 +1,6 @@
+"""Device ms a call of host-to-device copies (the batch handed over)."""
+from benchmark.core import readers
+
+
+def read(trace, ctx):
+    return readers.per_call_ms(trace, readers.h2d_copies(trace), ctx)
