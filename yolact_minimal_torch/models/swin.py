@@ -57,6 +57,7 @@ from yolact_minimal_torch.ops.swin_block import swin_block
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
 from yolact_minimal_torch.ops.window_attention import window_attention
 from yolact_minimal_torch.parallel import mesh
+from yolact_minimal_torch.utils.trace import span
 
 WINDOW = 7
 FORMS = ('composed', 'attn_block', 'whole')
@@ -298,20 +299,22 @@ class SwinBlock(nn.Module):
         _, h, w, _ = x.shape
         pad_b = (WINDOW - h % WINDOW) % WINDOW
         pad_r = (WINDOW - w % WINDOW) % WINDOW
-        if pad_b or pad_r:
-            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         hp, wp = h + pad_b, w + pad_r
         region = None
-        if self.shift > 0:
-            x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-            region = _regions_on(hp, wp, x.device)
-        return window_partition(x, WINDOW), hp, wp, region
+        with span('yolact.swin.glue'):
+            if pad_b or pad_r:
+                x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+            if self.shift > 0:
+                x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
+                region = _regions_on(hp, wp, x.device)
+            return window_partition(x, WINDOW), hp, wp, region
 
     def _from_windows(self, windows, hp, wp, h, w):
-        x = window_reverse(windows, WINDOW, hp, wp)
-        if self.shift > 0:
-            x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
-        return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
+        with span('yolact.swin.glue'):
+            x = window_reverse(windows, WINDOW, hp, wp)
+            if self.shift > 0:
+                x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
+            return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from yolact_minimal_torch.ops.boxes import crop
 from yolact_minimal_torch.ops.matching import match
 from yolact_minimal_torch.parallel import mesh
+from yolact_minimal_torch.utils.trace import count, span
 
 
 class LossBreakdown(NamedTuple):
@@ -163,10 +164,12 @@ def compute_loss(cfg, outputs, gt: dict, anchors: torch.Tensor,
     a process group the losses are this process's parts of the global
     batch's: their sum over the world is the global loss."""
     class_p, box_p, coef_p, proto_p, seg_p = outputs
-    m = match(gt['boxes'], gt['labels'], gt['valid'], anchors,
-              cfg.pos_iou_thre, cfg.neg_iou_thre)
+    with span('yolact.train.match'):
+        m = match(gt['boxes'], gt['labels'], gt['valid'], anchors,
+                  cfg.pos_iou_thre, cfg.neg_iou_thre)
     pos = m.conf_gt > 0
     total_pos = mesh.global_sum(pos.sum())
+    count('train.positives', total_pos)
     total_images = mesh.global_rows(pos.shape[0])[0]
     loss_c = category_loss(class_p, m.conf_gt, cfg.conf_alpha, total_pos=total_pos)
     loss_b = box_loss(box_p, m.offsets, pos, cfg.bbox_alpha, total_pos=total_pos)

@@ -19,6 +19,7 @@ import torch
 from yolact_minimal_torch.ops.boxes import crop, decode
 from yolact_minimal_torch.ops.resize import resize_bilinear_hw_last
 from yolact_minimal_torch.ops.suppression import suppression_iou_max
+from yolact_minimal_torch.utils.trace import count
 
 NEG_INF = -1e10
 
@@ -92,6 +93,7 @@ def detect_postprocess_batch(class_pred, box_pred, coef_pred, anchors,
         keep = scores_all.amax(dim=-1) > score_thre          # [B, A]
         scores = torch.where(keep[..., None], scores_all, NEG_INF).transpose(1, 2)
         boxes = decode(box_pred, anchors, clip=True)
+    count('nms.candidates', keep)
 
     k = min(top_k, scores.shape[-1])
     cls_scores, idx = _top_k(scores, k)                     # [B, C-1, K]

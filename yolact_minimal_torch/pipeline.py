@@ -38,6 +38,7 @@ from yolact_minimal_torch.ops.nms import (Detections, assemble_masks,
 from yolact_minimal_torch.ops.traditional_nms import traditional_nms
 from yolact_minimal_torch.utils.checkpoint import load_weights_auto
 from yolact_minimal_torch.utils.device import resolve_device
+from yolact_minimal_torch.utils.trace import count, span
 
 
 class Detector:
@@ -96,21 +97,28 @@ class Detector:
         return tuple(Detections(*map(cat, zip(*parts))) if isinstance(parts[0], Detections)
                      else cat(parts) for parts in zip(*outs))
 
+    def _forward(self, images) -> Tuple[torch.Tensor, ...]:
+        """The batch copied to the device, then the network's four outputs."""
+        with span('yolact.detect.copy'):
+            images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        with span('yolact.detect.forward'):
+            return self.model(images)
+
     def _infer(self, images) -> Tuple[Detections, torch.Tensor]:
-        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        class_p, box_p, coef_p, proto = self.model(images)
+        class_p, box_p, coef_p, proto = self._forward(images)
         cfg = self.cfg
-        dets = detect_postprocess_batch(
-            class_p, box_p, coef_p, self.anchors, cfg.nms_score_thre,
-            cfg.nms_iou_thre, cfg.top_k, cfg.max_detections, cfg.nms_pre_topk)
+        with span('yolact.detect.nms'):
+            dets = detect_postprocess_batch(
+                class_p, box_p, coef_p, self.anchors, cfg.nms_score_thre,
+                cfg.nms_iou_thre, cfg.top_k, cfg.max_detections, cfg.nms_pre_topk)
+        count('detect.valid', dets.valid)
         return dets, proto
 
     def _infer_raw(self, images) -> Tuple[torch.Tensor, ...]:
         """The device half of the --traditional_nms path: the forward and the
         box decode -> (class_p [B, A, C], boxes [B, A, 4] normalized xyxy,
         coefs [B, A, 32], proto [B, ph, pw, 32])."""
-        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        class_p, box_p, coef_p, proto = self.model(images)
+        class_p, box_p, coef_p, proto = self._forward(images)
         return class_p, decode(box_p, self.anchors, clip=True), coef_p, proto
 
     @torch.inference_mode()
@@ -118,13 +126,20 @@ class Detector:
         """images [B, S, S, 3] normalized RGB -> (Detections, masks_proto
         [B, ph, pw, D] float, proto [B, ph, pw, 32]): on the device for fast
         NMS; CPU tensors of the same shapes with cfg.traditional_nms."""
-        return self._over_mesh(images, Detector._call_one)
+        with span('yolact.detect'):
+            return self._over_mesh(images, Detector._call_one)
 
     def _call_one(self, images):
         if self.cfg.traditional_nms:
-            return self.traditional_tail(*_to_host(self._infer_raw(images)))
+            raw = _to_host(self._infer_raw(images))
+            with span('yolact.detect.nms'):
+                out = self.traditional_tail(*raw)
+            count('detect.valid', out[0].valid)
+            return out
         dets, proto = self._infer(images)
-        return dets, assemble_masks(proto, dets, do_crop=not self.cfg.no_crop), proto
+        with span('yolact.detect.masks'):
+            masks = assemble_masks(proto, dets, do_crop=not self.cfg.no_crop)
+        return dets, masks, proto
 
     def traditional_tail(self, class_p: np.ndarray, boxes_all: np.ndarray,
                          coef_p: np.ndarray, proto: np.ndarray):
@@ -166,12 +181,14 @@ class Detector:
         """Detect with square binarized masks on the device: (Detections,
         bool [B, D, out_size, out_size]). Always fast NMS, whatever
         cfg.traditional_nms says, as the JAX package's detect_fixed."""
-        return self._over_mesh(images, lambda det, rows: det._fixed_one(rows, out_size))
+        with span('yolact.detect'):
+            return self._over_mesh(images, lambda det, rows: det._fixed_one(rows, out_size))
 
     def _fixed_one(self, images, out_size: int):
         dets, proto = self._infer(images)
-        masks = mask_finalize(proto, dets.coefs, dets.boxes, dets.valid,
-                              out_size, not self.cfg.no_crop)
+        with span('yolact.detect.masks'):
+            masks = mask_finalize(proto, dets.coefs, dets.boxes, dets.valid,
+                                  out_size, not self.cfg.no_crop)
         return dets, masks
 
     @torch.inference_mode()

@@ -38,6 +38,7 @@ from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.ops.losses import LossBreakdown, compute_loss
 from yolact_minimal_torch.parallel import mesh
 from yolact_minimal_torch.utils.device import resolve_device
+from yolact_minimal_torch.utils.trace import span
 from yolact_minimal_torch.utils.weights import (from_jax_variables, graft_backbone,
                                                 to_jax_variables)
 
@@ -129,22 +130,29 @@ def train_step(state: TrainState, batch: Dict[str, np.ndarray],
     losses, detached: in a process group this process's parts, which sum
     to the global losses (`mesh.global_sum`). `priorities` [B_global, A]
     replaces the lincomb subsample's random draw (tests)."""
-    gt = mesh.shard_batch(batch, state.device)
-    image = gt.pop('image')
-    lr = lr_schedule(state.cfg)(state.step)
-    for group in state.optimizer.param_groups:
-        group['lr'] = lr
-    generator = step_generator(state)
-    state.model.train()
-    outputs = state.model(image, generator=generator)
-    losses = compute_loss(state.cfg, outputs, gt, state.anchors, generator=generator,
-                          priorities=priorities)
-    state.optimizer.zero_grad(set_to_none=True)
-    losses.total.backward()
-    mesh.all_reduce_grads(state.model.parameters())
-    state.optimizer.step()
-    state.step += 1
-    return LossBreakdown(*(t.detach() for t in losses))
+    with span('yolact.train.step'):
+        with span('yolact.train.copy'):
+            gt = mesh.shard_batch(batch, state.device)
+        image = gt.pop('image')
+        lr = lr_schedule(state.cfg)(state.step)
+        for group in state.optimizer.param_groups:
+            group['lr'] = lr
+        generator = step_generator(state)
+        state.model.train()
+        with span('yolact.train.forward'):
+            outputs = state.model(image, generator=generator)
+        with span('yolact.train.loss'):
+            losses = compute_loss(state.cfg, outputs, gt, state.anchors, generator=generator,
+                                  priorities=priorities)
+        state.optimizer.zero_grad(set_to_none=True)
+        with span('yolact.train.backward'):
+            losses.total.backward()
+        with span('yolact.train.all_reduce'):
+            mesh.all_reduce_grads(state.model.parameters())
+        with span('yolact.train.optimizer'):
+            state.optimizer.step()
+        state.step += 1
+        return LossBreakdown(*(t.detach() for t in losses))
 
 
 # --- the optimizer state in the JAX package's checkpoint layout --------------------

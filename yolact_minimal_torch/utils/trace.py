@@ -1,0 +1,46 @@
+"""Profiler spans and work counters at the port's layer boundaries.
+
+`span(name)` is a `torch.profiler.record_function` range while a profiler
+records, so that the port's layers land in the same trace as the device's
+activity and on its clock; otherwise it is a shared no-op context, since a
+range costs host time (~15 us) even with no profiler to read it. Names are
+`yolact.<path>.<layer>`.
+
+`count(name, tensor)` keeps a reference to a tensor the call computes
+anyway (a mask, a count), and only while a profiler records: it launches
+nothing and waits for nothing. `counts()` sums what was kept, by name,
+synchronising then; `reset()` forgets it. A kept tensor must not be written
+in place afterwards.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List
+
+import torch
+
+_OFF = contextlib.nullcontext()
+_kept: Dict[str, List[torch.Tensor]] = {}
+
+
+def _recording() -> bool:
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str):
+    return torch.profiler.record_function(name) if _recording() else _OFF
+
+
+def count(name: str, tensor: torch.Tensor) -> None:
+    if _recording():
+        _kept.setdefault(name, []).append(tensor)
+
+
+def counts() -> Dict[str, int]:
+    """The sum of every tensor kept under each name, as host integers."""
+    with torch.no_grad():
+        return {name: sum(int(t.sum()) for t in kept) for name, kept in _kept.items()}
+
+
+def reset() -> None:
+    _kept.clear()
