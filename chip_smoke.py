@@ -64,18 +64,23 @@ Phases, in order; any failure exits nonzero:
   8. training: (a) kernels 3-6 under autograd at swin_tiny's training
      shapes (544, train_bs 8, bf16; the block kernels on the shifted windows
      of the padded map): forward and gradients against the plain
-     version's autograd, forward and backward (the plain recompute) timed
-     with CUDA events and in device time; (b) res50_coco at 544, train_bs 8
+     version's autograd, forward and backward (kernel 3's backward kernel,
+     the plain recompute for kernels 4-6) timed with CUDA events and in
+     device time; then kernel 3's backward kernel beside the plain recompute
+     it replaced at batches 8 and 64, shifted: gradient gaps, times and
+     bound; (b) res50_coco at 544, train_bs 8
      on custom_dataset/ through the port's TrainLoader, float32 (TF32 off)
      and bf16, and (c) swin_tiny_coco in bf16: train_step with the counters
-     set to 0 before and read after (swin: 12 launches of kernel 3 and 1 of
-     kernel 4 a step), finite losses, ms a step, img/s, peak memory and the
+     set to 0 before and read after (swin: 12 launches of kernel 3 and of
+     its backward kernel and 1 of kernel 4 a step; res50: none of the
+     backward kernel), finite losses, ms a step, img/s, peak memory and the
      busy share of one profiled step; (d) `python -m
      yolact_minimal_torch.train` on res50_custom at 256 for 220 steps with a
      validation at step 200: the logged loss falls, both checkpoints are
      written, the box and mask rows are printed; (e) swin_tiny_coco in the
      'mixed' forms: two bf16 steps launching kernels 6 / 5 / 3 / 4 exactly
-     1 / 2 / 9 / 0 times a step with finite losses, then one float32 step
+     1 / 2 / 9 / 0 times a step and kernel 3's backward kernel 9 times, with
+     finite losses, then one float32 step
      against the 'composed' step from the same init (first losses within
      1e-4, the gradients' distance printed);
   9. export and video: (a) `python -m yolact_minimal_torch.export` on a
@@ -101,8 +106,9 @@ Phases, in order; any failure exits nonzero:
      times, kernel 1 never, its slate equal to the numpy tail on the card's
      raw outputs; (d) train_step with and without --remat, res50_coco and
      swin_tiny_coco, bf16, 544/b8: the losses of the first step within 1e-3,
-     ms a step, peak memory, the launches of kernels 3 and 4 (24 and 2 a
-     remat swin step); (e) the train CLI with --backbone_weight and --remat.
+     ms a step, peak memory, the launches of kernels 3 and 4 and of kernel
+     3's backward kernel (24, 2 and 12 a remat swin step; none of the last
+     in res50); (e) the train CLI with --backbone_weight and --remat.
   11. data parallelism: (a) a world of two gloo processes on cuda:0
      (`chip_smoke.py --dp-worker`, each with a timeout), 4 rows each of phase
      8's first two batches: res50_coco float32 (TF32 off, base_lr 0.1) and
@@ -112,8 +118,8 @@ Phases, in order; any failure exits nonzero:
      statistics within 1e-3 of their largest magnitude (float32), its
      gradients and updated parameters within 1e-5 of their norm (float64);
      swin's losses within one bf16 ulp; the same
-     weights in both processes; kernels 3 and 4 12 and 1 times a step in
-     each; (b) `python -m yolact_minimal_torch.train` in a one-process nccl
+     weights in both processes; kernels 3 and 4 and kernel 3's backward
+     kernel 12, 1 and 12 times a step in each; (b) `python -m yolact_minimal_torch.train` in a one-process nccl
      world (YOLACT_COORDINATOR) on res50_custom at 256 for 11 steps: the
      join line, finite losses, its t_step beside phase 8d's; (c) the eval
      CLI with --data_parallel 1 in this process over phase 3c's weights and
@@ -146,7 +152,10 @@ swin_tiny_coco/traditional) and the remat pairs
 each process of the gloo world ({res50_coco/dp_train_float32,
 res50_coco/dp_train_float64, swin_tiny_coco/dp_train_bfloat16}_process{0,1},
 over 2, 1 and 2 steps) and the eval
-CLI with --data_parallel 1 (res50_custom/eval_dp1). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
+CLI with --data_parallel 1 (res50_custom/eval_dp1). Kernel 3 also carries
+`backward_kernel` (phase 8a's per-stage times and gaps of its backward
+kernel beside the plain recompute) and `backward_launches_by_path`
+(the backward kernel's launches on each path that counts them). `bound_ms` is held to the peak named in `peak`. The swin kernels' top-level numbers are those of the
 stage-0 shape in bf16; `per_stage` lists all four. `ms` is CUDA events
 around one call, the wrapper's host work included; the suppression,
 window-attention, mask and both block kernels also have `device_ms`, the
@@ -236,14 +245,16 @@ TRAIN_SWIN_STAGES = ((3200, 400, 96, 3, 147968), (800, 100, 192, 6, 36992),
 TRAIN_STEPS = 6
 TRAIN_WORKERS = 6
 TRAIN_CLI_IMG, TRAIN_CLI_STEPS, TRAIN_CLI_VAL = 256, 220, 200
-TRAIN_LAUNCHES_PER_STEP = {'window_attention': 12, 'swin_mlp': 1}
+TRAIN_LAUNCHES_PER_STEP = {'window_attention': 12, 'swin_mlp': 1,
+                           'window_attention_backward': 12}
 # The 'mixed' forms in training, as the JAX block routes them: stage 0 'whole'
 # runs kernel 6 in block 0 (rate 0) and falls back to kernel 3 and the plain
 # MLP in block 1; stage 1 'attn_block' runs kernel 5 in both blocks; stages
 # 2-3 'composed' run kernel 3 in their 8 blocks; kernel 4 nowhere (every
-# block after block 0 has a nonzero drop_path rate).
+# block after block 0 has a nonzero drop_path rate). Kernel 3's backward
+# kernel runs once a launch of kernel 3, in bf16 only.
 MIXED_TRAIN_LAUNCHES_PER_STEP = {'swin_block': 1, 'attn_block': 2, 'window_attention': 9,
-                                 'swin_mlp': 0}
+                                 'swin_mlp': 0, 'window_attention_backward': 9}
 # Float32 network outputs of two block forms on the card: the same function
 # up to summation order, each output within 1e-4 of its largest magnitude.
 FORM_REL_TOL = 1e-4
@@ -1188,6 +1199,25 @@ def _counters(name):
     return counters
 
 
+def _zero_counters(counters):
+    """Sets the launch counters of `counters` to 0, and kernel 3's backward
+    kernel's (window_attention.backward_launches)."""
+    from yolact_minimal_torch.ops.window_attention import window_attention
+    for fn in counters.values():
+        fn.launches = 0
+    window_attention.backward_launches = 0
+
+
+def _read_counters(counters):
+    """The launches since _zero_counters, kernel 3's backward kernel's under
+    'window_attention_backward' (on every path: 0 where no bf16 kernel 3
+    runs backward)."""
+    from yolact_minimal_torch.ops.window_attention import window_attention
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches['window_attention_backward'] = window_attention.backward_launches
+    return launches
+
+
 def phase_main_path(dev, name, form='composed', det=None, images=None, n_iters=10):
     """`name` (res50_coco or swin_tiny_coco) at 544, batch 16, bf16, seeded
     random init; for swin on path `form` of SWIN_PATHS, on the Detector and
@@ -1747,9 +1777,10 @@ def phase_eval(dev, smi, kernel1):
 
 def check_train_autograd(dev):
     """Kernels 3-6 under autograd at swin_tiny's training shapes (544,
-    train_bs 8), bf16: the kernel forward and its backward (the plain
-    version recomputed under autograd) against the plain version's forward
-    and autograd on the same inputs and cotangent; forward and backward
+    train_bs 8), bf16: the kernel forward and its backward (kernel 3's
+    backward kernel; for kernels 4-6 the plain version recomputed under
+    autograd) against the plain version's forward and autograd on the same
+    inputs and cotangent; forward and backward
     timed with CUDA events and in device time. The block kernels take the
     shifted windows of the stage's padded map (region and rowmask), weights
     in bf16 as models/swin.py hands them over. Returns {kernel: per-stage
@@ -1788,7 +1819,7 @@ def check_train_autograd(dev):
         times = dict(ms=_time_ms(fwd), device_ms=_device_ms(fwd), backward_ms=_time_ms(bwd),
                      backward_device_ms=_device_ms(bwd), grad_rel_err=worst)
         print(f'  {name} stage {stage} under autograd, bf16: forward {times["ms"]:.4f} ms (device '
-              f'{times["device_ms"]:.4f}), backward by plain recompute {times["backward_ms"]:.4f} '
+              f'{times["device_ms"]:.4f}), backward {times["backward_ms"]:.4f} '
               f'ms (device {times["backward_device_ms"]:.4f}); output and gradients within '
               f'{worst:.3g} of max |plain| (<= {SWIN_BF16_REL_TOL:.3g})')
         return times
@@ -1832,6 +1863,64 @@ def check_train_autograd(dev):
     return out
 
 
+# Kernel 3's backward at the training shapes of TRAIN_BS and of the
+# benchmark's swin_tiny_coco.train_b64 cell (8 times the windows), shifted:
+# the bf16 kernel against the plain recompute it replaced, each tensor of the
+# gradient within WA_BACKWARD_GAP of the plain one in relative L2 (both round
+# at the same places: the kernel reads under 1.4e-4, a backward that rounds
+# dS to bf16 ~2.6e-3, tests/test_torch_window_attention_backward.py). Bound: qkv and the incoming gradient read and d_qkv
+# written once, 14 C bytes a padded row, against five products of
+# 2 * 49 * 49 * 32 operations a (window, head).
+WA_BACKWARD_BATCHES = (TRAIN_BS, 64)
+WA_BACKWARD_GAP = 5e-4
+
+
+def check_window_attention_backward(dev):
+    """Kernel 3's backward (ops/window_attention.py::window_attention_backward,
+    the bf16 kernel) beside the plain recompute under autograd
+    (window_attention_backward_plain) at each swin_tiny stage, batches
+    WA_BACKWARD_BATCHES at 544, shifted: the gaps of dq, dk, dv and d_bias,
+    both timed with CUDA events and in device time, and the kernel's bound. Returns a list of per-stage dicts."""
+    import torch
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    from yolact_minimal_torch.ops.window_attention import (window_attention_backward,
+                                                           window_attention_backward_plain)
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf16 = torch.bfloat16
+    out = []
+    print('phase 8a: kernel 3\'s backward against the plain recompute, shifted, bf16')
+    for batch in WA_BACKWARD_BATCHES:
+        for stage, (bnw, nw, c, heads, _) in enumerate(TRAIN_SWIN_STAGES):
+            bnw = bnw * batch // TRAIN_BS
+            region = torch.from_numpy(shifted_window_regions(*(SWIN_MAPS[stage][1],) * 2)).to(dev)
+            qkv = torch.randn(bnw, 49, 3 * c, device=dev, generator=g).to(bf16)
+            bias = (torch.randn(heads, 49, 49, device=dev, generator=g) * 0.1).to(bf16)
+            grad = torch.randn(bnw, 49, c, device=dev, generator=g).to(bf16)
+            kernel = lambda: window_attention_backward(qkv, bias, region, heads, grad)
+            plain = lambda: window_attention_backward_plain(qkv, bias, region, heads, grad)
+            (got, got_bias), (ref, ref_bias) = kernel(), plain()
+            pairs = [(got[..., i * c:(i + 1) * c], ref[..., i * c:(i + 1) * c]) for i in range(3)]
+            gaps = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for a, b in pairs + [(got_bias, ref_bias)]]
+            _check(max(gaps) <= WA_BACKWARD_GAP, f'kernel 3 backward, batch {batch} stage '
+                   f'{stage}: dq, dk, dv, d_bias gaps {gaps} (> {WA_BACKWARD_GAP})')
+            bound, bound_by = _bound_ms(14 * c * bnw * 49, 5 * 2 * 49 * 49 * 32 * bnw * heads,
+                                        BF16_PEAK)
+            t = dict(batch=batch, stage=stage, shape=[bnw, 49, 3 * c], heads=heads,
+                     ms=_time_ms(kernel), device_ms=_device_ms(kernel),
+                     plain_ms=_time_ms(plain), plain_device_ms=_device_ms(plain),
+                     bound_ms=bound, bound_by=bound_by, gaps=gaps)
+            print(f'  batch {batch} stage {stage} {tuple(t["shape"])}: kernel {t["ms"]:.4f} ms '
+                  f'(device {t["device_ms"]:.4f}), plain recompute {t["plain_ms"]:.4f} ms (device '
+                  f'{t["plain_device_ms"]:.4f}), bound {bound:.5f} ms ({bound_by}); '
+                  f'relative L2 gaps dq {gaps[0]:.3g} dk {gaps[1]:.3g} dv {gaps[2]:.3g} '
+                  f'd_bias {gaps[3]:.3g}')
+            out.append(t)
+            del qkv, bias, grad, got, got_bias, ref, ref_bias, pairs
+            torch.cuda.empty_cache()
+    return out
+
+
 def _train_batches(n):
     """n batches of custom_dataset/ at IMG, TRAIN_BS a batch, from the port's
     TrainLoader (seed 0, worker processes); the loader is closed after."""
@@ -1872,8 +1961,7 @@ def phase_train_path(dev, name, dtype, batches, smi):
     cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS, compute_dtype=dtype)
     state = create_train_state(cfg, dev, seed=0)
     counters = _counters(name)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counters(counters)
     totals = []
     for batch in batches[:2]:                                   # warm-up
         totals.append(float(train_step(state, batch).total))
@@ -1885,16 +1973,20 @@ def phase_train_path(dev, name, dtype, batches, smi):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / len(timed) * 1e3
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counters(counters)
     steps = len(batches)
     totals += [float(l.total) for l in losses]
     _check(all(math.isfinite(t) for t in totals), f'{name} {dtype}: non-finite loss {totals}')
     if name.startswith('swin'):
-        # kernel 3 in all 12 blocks, kernel 4 where stochastic depth is off (block 0)
-        _check(launches['window_attention'] == 12 * steps and launches['swin_mlp'] == steps
+        # kernel 3 and its backward kernel in all 12 blocks, kernel 4 where
+        # stochastic depth is off (block 0)
+        want = {k: n * steps for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+        _check(all(launches[k] == n for k, n in want.items())
                and launches['attn_block'] == launches['swin_block'] == 0,
-               f'{name} train: expected 12 and 1 launches of kernels 3 and 4 a step over '
-               f'{steps} steps, got {launches}')
+               f'{name} train: expected {want} launches over {steps} steps, got {launches}')
+    else:
+        _check(launches['window_attention_backward'] == 0,
+               f'{name} train launched kernel 3\'s backward kernel: {launches}')
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
@@ -1950,15 +2042,14 @@ def phase_train_mixed(dev, batches, smi):
     state = create_train_state(cfg, dev, seed=0)
     state.model.backbone.set_block_forms(mixed)
     counters = _counters(name)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counters(counters)
     totals = [float(train_step(state, batches[0]).total)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     totals.append(float(train_step(state, batches[1]).total))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counters(counters)
     want = {k: 2 * n for k, n in MIXED_TRAIN_LAUNCHES_PER_STEP.items()}
     _check(all(math.isfinite(t) for t in totals), f'{name} mixed bf16: non-finite loss {totals}')
     _check({k: launches[k] for k in want} == want and launches['suppression_iou_max'] == 0 and
@@ -1973,6 +2064,7 @@ def phase_train_mixed(dev, batches, smi):
     cfg = get_config(name, mode='train', img_size=IMG, train_bs=TRAIN_BS, compute_dtype='float32')
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    _zero_counters(counters)
     try:
         runs = {}
         for forms in ('composed', mixed):
@@ -1985,6 +2077,9 @@ def phase_train_mixed(dev, batches, smi):
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    float32_backward = _read_counters(counters)['window_attention_backward']
+    _check(float32_backward == 0, f'{name} float32 steps launched kernel 3\'s backward kernel '
+                                  f'{float32_backward} times (the plain recompute runs there)')
     (ref, ref_g), (got, got_g) = runs['composed'], runs[mixed]
     rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, ref)]
     _check(max(rel) <= FORM_REL_TOL, f'{name} float32 mixed step: losses {[float(t) for t in got]}'
@@ -2070,7 +2165,10 @@ def phase_train(dev, smi, kernels, batches):
     import torch
     t_phase = time.perf_counter()
     auto = check_train_autograd(dev)
+    backward = check_window_attention_backward(dev)
     for k in kernels:
+        if k['name'] == 'window_attention':
+            k['backward_kernel'] = backward
         if k['name'] in auto:
             k['train'] = dict(per_stage=auto[k['name']],
                               launches_per_step=TRAIN_LAUNCHES_PER_STEP.get(k['name'], 0),
@@ -2577,8 +2675,7 @@ def phase_flags_remat(dev, smi, batches):
                              compute_dtype='bfloat16', remat=use_remat)
             state = create_train_state(cfg, dev, seed=0)
             counters = _counters(name)
-            for fn in counters.values():
-                fn.launches = 0
+            _zero_counters(counters)
             first[use_remat] = [float(t) for t in train_step(state, batches[0])]
             for batch in batches[1:3]:                          # warm-up
                 train_step(state, batch)
@@ -2590,15 +2687,17 @@ def phase_flags_remat(dev, smi, batches):
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) / (REMAT_STEPS - 2) * 1e3
             peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = _read_counters(counters)
             steps = 1 + REMAT_STEPS
             path = f'{name}/train_{"remat" if use_remat else "plain"}_bfloat16'
             by_path[path] = launches
-            if name.startswith('swin'):
-                k = 2 if use_remat else 1
-                want = {'window_attention': 12 * k * steps, 'swin_mlp': k * steps}
-                _check(all(launches[n] == c for n, c in want.items()),
-                       f'{path}: expected {want} launches over {steps} steps, got {launches}')
+            # the remat step runs each forward twice and each backward once
+            k = 2 if use_remat else 1
+            want = {'window_attention': 12 * k * steps, 'swin_mlp': k * steps,
+                    'window_attention_backward': 12 * steps} if name.startswith('swin') else \
+                {'window_attention_backward': 0}
+            _check(all(launches[n] == c for n, c in want.items()),
+                   f'{path}: expected {want} launches over {steps} steps, got {launches}')
             rows.append((path, step_ms, peak, launches, steps))
             print(f'10d. {path} {IMG}/b{TRAIN_BS}: {step_ms:.3f} ms a step ({REMAT_STEPS - 2} '
                   f'steps after 3, host clock to a synchronize), {TRAIN_BS / step_ms * 1e3:.2f} '
@@ -2744,8 +2843,7 @@ def dp_worker(spec_path):
             run = f'{name}/{dtype}'
             state = _dp_state(name, dev, dtype)
             counters = _counters(name)
-            for fn in counters.values():
-                fn.launches = 0
+            _zero_counters(counters)
             losses = train_step(state, _dp_batch(batches[0], dtype))
             out[f'{run}/losses'] = mesh.global_sum(torch.stack(losses)).double().cpu().numpy()
             if name.startswith('res50') and rank == 0:
@@ -2763,8 +2861,9 @@ def dp_worker(spec_path):
                 torch.cuda.synchronize()
                 mesh.barrier()
                 out[f'{run}/ms'] = np.float64((time.perf_counter() - t0) * 1e3)
-            out[f'{run}/launches'] = np.array([fn.launches for fn in counters.values()])
-            out[f'{run}/kernels'] = np.array(list(counters))
+            launches = _read_counters(counters)
+            out[f'{run}/launches'] = np.array(list(launches.values()))
+            out[f'{run}/kernels'] = np.array(list(launches))
             out[f'{run}/checksum'] = np.array([float(t.double().sum()) for t in
                                                state.model.state_dict().values()])
             del state
@@ -2841,8 +2940,8 @@ def phase_dp_train(dev, smi, batches):
     same global batch in this call (limits above DP_WORKER_FLAG). res50
     float32: the first step's four losses and the running statistics;
     res50 float64: every gradient and updated parameter; swin bf16, drop_path
-    on: the losses, and kernels 3 and 4 launched 12 and 1 times a step in
-    each process. Every process ends with the same weights. Returns {path:
+    on: the losses, and kernels 3 and 4 and kernel 3's backward kernel
+    launched 12, 1 and 12 times a step in each process. Every process ends with the same weights. Returns {path:
     launches}."""
     import tempfile
     import numpy as np
@@ -3097,6 +3196,10 @@ def main():
         k['launches'] = by_path[own_path[k['name']]][k['name']]
         _check(k['launches'] > 0, f'kernel {k["name"]} was not launched on its path')
         k['launches_by_path'] = {p: c[k['name']] for p, c in by_path.items() if k['name'] in c}
+        if k['name'] == 'window_attention':
+            k['backward_launches_by_path'] = {p: c['window_attention_backward']
+                                              for p, c in by_path.items()
+                                              if 'window_attention_backward' in c}
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -17,7 +17,13 @@
 namespace sm90 {
 
 // Host: cuTensorMapEncodeTiled from the driver, looked up at run time through
-// the CUDA runtime (no -lcuda); null where the driver has none.
+// the CUDA runtime (no -lcuda); null where the driver has none. The encoder
+// needs a context current on the calling thread, and a thread may have none
+// yet: PyTorch's autograd thread for device 0 runs no CUDA call of its own
+// before a backward's first node, and none at all where that node's
+// allocations come from PyTorch's cache. So each call first makes the
+// current device's primary context current; where a context is current
+// already, the current device is its device and the call changes nothing.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -25,6 +31,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
+    return nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;

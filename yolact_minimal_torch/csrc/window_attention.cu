@@ -54,8 +54,60 @@
 // thread i < 49 owns query row i: its 49 scores overwrite its bias row in
 // shared memory, the row softmax runs in its registers, and p v reads v rows
 // as broadcasts.
+//
+// The backward, bf16 (window_attention_bwd_bf16_kernel, then
+// window_attention_bwd_bias_kernel), is a design for the card with no TPU
+// counterpart: the JAX package's custom_vjp (_fused_bwd) recomputes the
+// attention plainly through XLA, as the float32 path and the CPU do here
+// (ops/window_attention.py::window_attention_backward_plain). For window w,
+// head h and the incoming gradient dO of out[w, :, h*32:(h+1)*32]:
+//
+//     S = q_s k^T + bias[h] + mask,  P = softmax(S),  dV = bf16(P)^T dO,
+//     dP = dO v^T,  dS = P (dP - rowsum(P dP)),  dq_s = dS k,  dk = dS^T q_s,
+//     d_bias[h] = the sum over windows of dS
+//
+// with q_s = bf16(q * bf16(scale)) as the forward rounds it. Rounding places,
+// the plain backward's: q_s, k, v, dO and bf16(P) are bf16 operands; every
+// product and sum accumulates in float32; dP is rounded to bf16 where the
+// plain backward's cast of P rounds its gradient; P stays float32 for dS;
+// dS is never rounded to bf16 (its products take it as a hi / lo pair of
+// bf16 operands, hi = bf16(dS), lo = bf16(dS - hi)); dq_s, dk, dv and
+// d_bias are rounded to bf16 once, and dq = bf16(bf16(dq_s) * bf16(scale)),
+// as the plain backward's product with the scale rounds it.
+//
+// What bounds it on an H100: bytes. qkv and dO are read once and d_qkv written
+// once, 14 C bytes a padded row (1.69 GB at 25600 windows of C = 96, 0.50 ms at
+// 3.35 TB/s), against five products of 2 * 49 * 49 * 32 operations a (window,
+// head), 0.06 ms on the tensor cores there. The plain recompute instead passes
+// [B*nW, heads, 49, 49] float32 tensors through device memory a dozen times.
+//
+// - A 49-token window is one tile: a (window, head) unit recomputes S and the
+//   whole softmax P inside it, so nothing of the forward is saved beyond qkv
+//   and the bias, and no online softmax is needed.
+// - Work and loads as the forward's: a group of four warps walks the windows
+//   of one head (backward_geometry in ops/window_attention.py deals them as
+//   kernel_geometry does); q, k, v and dO arrive by TMA into a ring of three
+//   slots, the next unit's under the current one's products. One group a
+//   block, three blocks a multiprocessor: the unit's P and dS tiles take 24 KB
+//   of shared memory beside the ring, and a thread's 168 registers keep P, dP
+//   and the head's d_bias partial live at once.
+// - Warp r first owns query rows 16 r .. 16 r + 15 against all keys: S and P
+//   (mma.sync, as the forward), dP = dO v^T, D and dS in registers, then
+//   dq_s = dS k with dS as the A operand. It writes bf16(P) and dS hi / lo
+//   into shared memory; after a block barrier it owns keys 16 r .. 16 r + 15
+//   and reads them back transposed (ldmatrix.trans) as the A operand of
+//   dv = P^T dO and dk = dS^T q_s.
+// - Stores: the four lanes of a quad trade their accumulator pairs through
+//   shuffles so that each lane holds 8 consecutive columns of a row; every row
+//   of dq, dk and dv is one 64-byte segment, written straight into d_qkv's
+//   [B*nW, 49, 3C] layout.
+// - d_bias: each thread keeps its scores' float32 partial over the group's
+//   walk in registers and writes it once to a [groups, 49, 49] buffer; a
+//   second launch sums a head's partials in a fixed order. Deterministic: no
+//   atomics anywhere.
 #include "sm90.cuh"
 #include "swin_common.cuh"
+#include "swin_tiled.cuh"
 
 namespace {
 
@@ -391,6 +443,407 @@ window_attention_f32_kernel(const float* __restrict__ qkv, const float* __restri
   }
 }
 
+// ------------------------------------------------ backward, bf16, Hopper -----
+
+namespace bwd {
+constexpr int THREADS = 128;                // one group of four warps a block
+constexpr int MINB = 3;                     // blocks a multiprocessor
+constexpr int STAGES = 3;                   // ring slots
+constexpr int LEAD = STAGES - 1;            // units in flight, the current one included
+constexpr int TILE = 64 * 64;               // q, k, v, dO: 64 rows of 64 bytes
+constexpr int SLOT = 4 * TILE;
+constexpr int UNIT_BYTES = 4 * N * HD * 2;  // what TMA writes into a slot
+constexpr int PTILE = 64 * 128;             // P, dS hi, dS lo: 64 query rows of 64 keys
+constexpr int PS = STAGES * SLOT;           // offset of the three P / dS tiles
+constexpr int BAR = PS + 3 * PTILE;         // full[STAGES], empty[STAGES]
+constexpr int SMEM = BAR + 2 * STAGES * 8 + 512;    // + room to align the base
+static_assert(MINB * (SMEM + 1024) <= 233472, "shared memory of a multiprocessor");
+}  // namespace bwd
+
+// Rows row0 + lane / 4 and + 8 of a warp's [16, 32] tile, as bf16 pairs
+// v[hi][nt] = (row lane / 4 + 8 hi; columns 8 nt + 2 (lane % 4), + 1), into dst
+// (row stride ld elements), rows at or past N left alone: two rounds of
+// shuffles within each quad transpose the 4 x 4 pairs, so that lane t holds
+// columns 8 t .. 8 t + 7 of its rows and writes each row's 64 bytes with its
+// three neighbours in one 16-byte store.
+__device__ __forceinline__ void store_rows(uint32_t (&v)[2][4], bf16* dst, size_t ld, int row0) {
+  const int lane = threadIdx.x % 32, t = lane % 4;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      const bool up = (t & d) != 0;
+#pragma unroll
+      for (int i0 = 0; i0 < 4; ++i0) {
+        if (i0 & d) continue;
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? v[hi][i0] : v[hi][i0 | d], d);
+        if (up) v[hi][i0] = got;
+        else v[hi][i0 | d] = got;
+      }
+    }
+    const int row = row0 + lane / 4 + 8 * hi;
+    if (row < N)
+      *reinterpret_cast<uint4*>(dst + row * ld + 8 * t) =
+          make_uint4(v[hi][0], v[hi][1], v[hi][2], v[hi][3]);
+  }
+}
+
+// A float32 accumulator tile acc[nt][i] (as mma_bf16 leaves it) as the bf16
+// pairs of store_rows, each value times `mul` first.
+__device__ __forceinline__ void pack_tile(const float (&acc)[4][4], float mul,
+                                          uint32_t (&v)[2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+      v[hi][nt] = swin::pack_bf16(acc[nt][2 * hi] * mul, acc[nt][2 * hi + 1] * mul);
+}
+
+// Group gid (= block; per_head * heads of them) takes head gid % heads and
+// windows gid / heads, + per_head, ... below bnw, as the forward's groups.
+// tm: qkv [bnw * 49, 3C]; tg: the incoming gradient [bnw * 49, C]; dqkv as
+// qkv; part [groups, 49, 49] float32, each group's d_bias partial.
+__global__ void __launch_bounds__(bwd::THREADS, bwd::MINB)
+window_attention_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm,
+                                 const __grid_constant__ CUtensorMap tg,
+                                 const bf16* __restrict__ bias, const int* __restrict__ region,
+                                 bf16* __restrict__ dqkv, float* __restrict__ part, int bnw,
+                                 int heads, int nw, int per_head) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 511) & ~static_cast<uintptr_t>(511));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t ring = sm90::smem_addr(smem);
+  unsigned char* sp = smem + bwd::PS;         // bf16(P)
+  unsigned char* sh = sp + bwd::PTILE;        // bf16(dS)
+  unsigned char* sl = sh + bwd::PTILE;        // bf16(dS - bf16(dS))
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bwd::BAR);
+  uint64_t* empty = full + bwd::STAGES;
+
+  // rows N..63 of every tile of the ring, and keys 56..63 of the P / dS
+  // tiles, are zero for good
+  for (int e = tid; e < bwd::STAGES * 4 * (64 - N) * 4; e += bwd::THREADS) {
+    const int tile = e / ((64 - N) * 4), rest = e % ((64 - N) * 4);
+    *reinterpret_cast<uint4*>(smem + tile * bwd::TILE + (N + rest / 4) * 64 +
+                              (rest % 4) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int e = tid; e < 3 * 64; e += bwd::THREADS)
+    *reinterpret_cast<uint4*>(sp + (e / 64) * bwd::PTILE + sm90::sw128_offset(e % 64, 56)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < bwd::STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 4);            // every warp releases every slot
+    }
+    sm90::fence_mbar_init();
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const int c = heads * HD;
+  const int gid = blockIdx.x, h = gid % heads, w0 = gid / heads;
+  const int units = (bnw - 1 - w0) / per_head + 1;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp * 16 + g;                // this thread's rows: row0, row0 + 8
+  uint32_t bz[7][2];
+  swin::head_bias(bias + static_cast<size_t>(h) * N * N, warp, bz);
+  const float scale = round_to<bf16>(swin::QK_SCALE);
+  float db[7][4];                                // d_bias of this thread's scores, float32
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) db[nt][i] = 0.0f;
+
+  // Thread 0: start the copies of every unit before `upto`; unit v waits for
+  // the release of unit v - STAGES.
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto && issued < units; ++issued) {
+      const int s = issued % bwd::STAGES;
+      sm90::mbar_wait(empty + s, ((issued / bwd::STAGES) & 1) ^ 1);
+      const int row = (w0 + issued * per_head) * N;
+      const uint32_t dst = ring + s * bwd::SLOT;
+      sm90::mbar_expect_tx(full + s, bwd::UNIT_BYTES);
+      sm90::tma_load_2d(dst, &tm, h * HD, row, full + s);
+      sm90::tma_load_2d(dst + bwd::TILE, &tm, c + h * HD, row, full + s);
+      sm90::tma_load_2d(dst + 2 * bwd::TILE, &tm, 2 * c + h * HD, row, full + s);
+      sm90::tma_load_2d(dst + 3 * bwd::TILE, &tg, h * HD, row, full + s);
+    }
+  };
+
+  for (int u = 0; u < units; ++u) {
+    if (tid == 0) issue_upto(u + bwd::LEAD);
+    __syncwarp();
+    const int w = w0 + u * per_head;
+    int rl = 0, rh = 0;
+    if (region != nullptr) {
+      const int* rr = region + static_cast<size_t>(w % nw) * N;
+      rl = rr[lane];
+      rh = lane < N - 32 ? rr[32 + lane] : 0;
+    }
+    const int s = u % bwd::STAGES;
+    sm90::mbar_wait(full + s, (u / bwd::STAGES) & 1);
+    const unsigned char* tq = smem + s * bwd::SLOT;
+    const unsigned char* tk = tq + bwd::TILE;
+    const unsigned char* tv = tq + 2 * bwd::TILE;
+    const unsigned char* tdo = tq + 3 * bwd::TILE;
+
+    // S = q_s k^T over keys 0..55 for this warp's query rows (as the forward)
+    uint32_t qa[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      swin::ldmatrix_x4(qa[ks], reinterpret_cast<const bf16*>(
+                                    tq + sm90::sw64_offset(warp * 16 + lane % 16,
+                                                           16 * ks + 8 * (lane / 16))));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[ks][i] = scale_pair(qa[ks][i], scale);
+    }
+    float p[7][4];
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[nt][i] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t b[4];
+        swin::ldmatrix_x4(b, reinterpret_cast<const bf16*>(
+                                 tk + sm90::sw64_offset(kt * 16 + lane % 8 + 8 * (lane / 16),
+                                                        16 * ks + 8 * ((lane / 8) % 2))));
+        swin::mma_bf16(p[2 * kt], qa[ks], b[0], b[1]);
+        if (2 * kt + 1 < 7) swin::mma_bf16(p[2 * kt + 1], qa[ks], b[2], b[3]);
+      }
+
+    // P = softmax(S + bias + mask), -inf past the window, float32
+    const uint32_t differ = region != nullptr ? swin::region_differ(warp, rl, rh) : 0u;
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 b = unpack_bf16(bz[nt][i / 2]);
+        float sc = p[nt][i] + (i % 2 ? b.y : b.x);
+        sc += (differ >> (nt * 4 + i)) & 1u ? swin::NEG : 0.0f;
+        sc = 8 * nt + 2 * t + i % 2 < N ? sc : -INFINITY;
+        p[nt][i] = sc;
+        m[i / 2] = fmaxf(m[i / 2], sc);
+      }
+    float l[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 1));
+      m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 2));
+    }
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[nt][i] = expf(p[nt][i] - m[i / 2]);
+        l[i / 2] += p[nt][i];
+      }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+      l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+      // rows past the window get P = 0 (their dO rows are zero: dS is 0 there anyway)
+      l[hi] = row0 + 8 * hi < N ? 1.0f / l[hi] : 0.0f;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[nt][i] *= l[i / 2];
+
+    // dP = dO v^T, rounded to bf16; D = rowsum(P dP); dS = P (dP - D), into dp
+    uint32_t ga[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      swin::ldmatrix_x4(ga[ks], reinterpret_cast<const bf16*>(
+                                    tdo + sm90::sw64_offset(warp * 16 + lane % 16,
+                                                            16 * ks + 8 * (lane / 16))));
+    float dp[7][4];
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dp[nt][i] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t b[4];
+        swin::ldmatrix_x4(b, reinterpret_cast<const bf16*>(
+                                 tv + sm90::sw64_offset(kt * 16 + lane % 8 + 8 * (lane / 16),
+                                                        16 * ks + 8 * ((lane / 8) % 2))));
+        swin::mma_bf16(dp[2 * kt], ga[ks], b[0], b[1]);
+        if (2 * kt + 1 < 7) swin::mma_bf16(dp[2 * kt + 1], ga[ks], b[2], b[3]);
+      }
+    float dd[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dp[nt][i] = round_to<bf16>(dp[nt][i]);
+        dd[i / 2] += p[nt][i] * dp[nt][i];
+      }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      dd[hi] += __shfl_xor_sync(0xffffffffu, dd[hi], 1);
+      dd[hi] += __shfl_xor_sync(0xffffffffu, dd[hi], 2);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dp[nt][i] = p[nt][i] * (dp[nt][i] - dd[i / 2]);
+        db[nt][i] += dp[nt][i];
+      }
+
+    // dq_s = dS k: dS as the A operand, hi and lo; keys 56..63 are zero
+    float dq[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[nt][i] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nt = 2 * ks + j / 2;
+        if (nt < 7) {
+          const float x0 = dp[nt][2 * (j % 2)], x1 = dp[nt][2 * (j % 2) + 1];
+          const float h0 = round_to<bf16>(x0), h1 = round_to<bf16>(x1);
+          ah[j] = swin::pack_bf16(h0, h1);
+          al[j] = swin::pack_bf16(x0 - h0, x1 - h1);
+        } else {
+          ah[j] = al[j] = 0u;
+        }
+      }
+#pragma unroll
+      for (int dp2 = 0; dp2 < 2; ++dp2) {
+        uint32_t b[4];
+        swin::ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(
+                                       tk + sm90::sw64_offset(16 * ks + lane % 16,
+                                                              16 * dp2 + 8 * (lane / 16))));
+        swin::mma_bf16(dq[2 * dp2], ah, b[0], b[1]);
+        swin::mma_bf16(dq[2 * dp2], al, b[0], b[1]);
+        swin::mma_bf16(dq[2 * dp2 + 1], ah, b[2], b[3]);
+        swin::mma_bf16(dq[2 * dp2 + 1], al, b[2], b[3]);
+      }
+    }
+
+    // bf16(P), dS hi and lo into shared memory, once every warp is done with
+    // the last unit's
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const uint32_t off = sm90::sw128_offset(row0 + 8 * hi, 8 * nt + 2 * t);
+        const float x0 = dp[nt][2 * hi], x1 = dp[nt][2 * hi + 1];
+        const float h0 = round_to<bf16>(x0), h1 = round_to<bf16>(x1);
+        *reinterpret_cast<uint32_t*>(sp + off) = swin::pack_bf16(p[nt][2 * hi], p[nt][2 * hi + 1]);
+        *reinterpret_cast<uint32_t*>(sh + off) = swin::pack_bf16(h0, h1);
+        *reinterpret_cast<uint32_t*>(sl + off) = swin::pack_bf16(x0 - h0, x1 - h1);
+      }
+    __syncthreads();
+
+    // this warp's keys kb .. kb + 15: dv = P^T dO, dk = dS^T q_s, over query
+    // k-steps of 16 (rows past the window are zero in every operand)
+    const int kb = warp * 16;
+    float dv[4][4], dk[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[nt][i] = dk[nt][i] = 0.0f;
+#pragma unroll
+    for (int qs = 0; qs < 4; ++qs) {
+      const uint32_t off = sm90::sw128_offset(16 * qs + lane % 8 + 8 * (lane / 16),
+                                              kb + 8 * ((lane / 8) % 2));
+      uint32_t pa[4], ha[4], la[4];
+      swin::ldmatrix_x4_trans(pa, reinterpret_cast<const bf16*>(sp + off));
+      swin::ldmatrix_x4_trans(ha, reinterpret_cast<const bf16*>(sh + off));
+      swin::ldmatrix_x4_trans(la, reinterpret_cast<const bf16*>(sl + off));
+#pragma unroll
+      for (int dp2 = 0; dp2 < 2; ++dp2) {
+        const uint32_t boff = sm90::sw64_offset(16 * qs + lane % 16, 16 * dp2 + 8 * (lane / 16));
+        uint32_t b[4];
+        swin::ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(tdo + boff));
+        swin::mma_bf16(dv[2 * dp2], pa, b[0], b[1]);
+        swin::mma_bf16(dv[2 * dp2 + 1], pa, b[2], b[3]);
+        swin::ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(tq + boff));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = scale_pair(b[i], scale);
+        swin::mma_bf16(dk[2 * dp2], ha, b[0], b[1]);
+        swin::mma_bf16(dk[2 * dp2], la, b[0], b[1]);
+        swin::mma_bf16(dk[2 * dp2 + 1], ha, b[2], b[3]);
+        swin::mma_bf16(dk[2 * dp2 + 1], la, b[2], b[3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + s);    // this warp is done with the slot
+
+    // dq = bf16(bf16(dq_s) * scale); dk, dv rounded once
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[nt][i] = round_to<bf16>(dq[nt][i]);
+    bf16* base = dqkv + static_cast<size_t>(w) * N * 3 * c + h * HD;
+    uint32_t v[2][4];
+    pack_tile(dq, scale, v);
+    store_rows(v, base, 3 * c, warp * 16);
+    pack_tile(dk, 1.0f, v);
+    store_rows(v, base + c, 3 * c, kb);
+    pack_tile(dv, 1.0f, v);
+    store_rows(v, base + 2 * c, 3 * c, kb);
+  }
+
+  float* gp = part + static_cast<size_t>(gid) * N * N;
+#pragma unroll
+  for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 8 * (i / 2), key = 8 * nt + 2 * t + i % 2;
+      if (row < N && key < N) gp[row * N + key] = db[nt][i];
+    }
+}
+
+// d_bias[h] = bf16 of the sum of the partials of head h's groups
+// (h, h + heads, ...), in that order.
+__global__ void window_attention_bwd_bias_kernel(const float* __restrict__ part,
+                                                 bf16* __restrict__ dbias, int heads,
+                                                 int per_head) {
+  const int h = blockIdx.y, e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N * N) return;
+  float sum = 0.0f;
+  for (int k = 0; k < per_head; ++k)
+    sum += part[(static_cast<size_t>(k) * heads + h) * N * N + e];
+  dbias[static_cast<size_t>(h) * N * N + e] = __float2bfloat16_rn(sum);
+}
+
+int launch_bwd_bf16(const void* qkv, const void* bias, const int* region, const void* dout,
+                    void* dqkv, void* dbias, void* part, int bnw, int heads, int nw, int blocks,
+                    int groups, int per_head, cudaStream_t stream) {
+  if (groups <= 0 || blocks != groups || groups % heads != 0 || per_head != groups / heads ||
+      per_head > bnw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm, tg;
+  if (!qkv_map(&tm, qkv, bnw * N, 3 * heads * HD) || !qkv_map(&tg, dout, bnw * N, heads * HD) ||
+      reinterpret_cast<uintptr_t>(dqkv) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bwd::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_attention_bwd_bf16_kernel<<<blocks, bwd::THREADS, bwd::SMEM, stream>>>(
+      tm, tg, static_cast<const bf16*>(bias), region, static_cast<bf16*>(dqkv),
+      static_cast<float*>(part), bnw, heads, nw, per_head);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_attention_bwd_bias_kernel<<<dim3((N * N + 255) / 256, heads), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dbias), heads, per_head);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qkv [bnw, 49, 3 * heads * 32], bias [heads, 49, 49], region [nw, 49] int32
@@ -420,6 +873,34 @@ extern "C" int window_attention_attributes(int* g) {
   cudaError_t err = cudaFuncGetAttributes(&attr, window_attention_bf16_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int v[7] = {GROUPS, MINB, STAGES, BF_THREADS, SMEM, attr.numRegs,
+                    static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 7; ++i) g[i] = v[i];
+  return 0;
+}
+
+// The backward of the bf16 launch. qkv, bias, region as window_attention's;
+// dout, the incoming gradient [bnw, 49, heads * 32]; dqkv [bnw, 49, 3 * heads
+// * 32] and dbias [heads, 49, 49] receive the gradients (every element
+// written), bf16; part is float32 scratch of groups * 49 * 49. blocks, groups
+// and per_head are ops/window_attention.py::backward_geometry's (blocks ==
+// groups).
+extern "C" int window_attention_backward(const void* qkv, const void* bias, const void* region,
+                                         const void* dout, void* dqkv, void* dbias, void* part,
+                                         int bnw, int heads, int nw, int blocks, int groups,
+                                         int per_head, void* stream) {
+  if (bnw <= 0 || heads <= 0) return 0;
+  return launch_bwd_bf16(qkv, bias, static_cast<const int*>(region), dout, dqkv, dbias, part,
+                         bnw, heads, nw, blocks, groups, per_head,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The backward kernel's compiled shape into g[0..7), in the order of
+// window_attention_attributes.
+extern "C" int window_attention_backward_attributes(int* g) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, window_attention_bwd_bf16_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[7] = {1, bwd::MINB, bwd::STAGES, bwd::THREADS, bwd::SMEM, attr.numRegs,
                     static_cast<int>(attr.localSizeBytes)};
   for (int i = 0; i < 7; ++i) g[i] = v[i];
   return 0;

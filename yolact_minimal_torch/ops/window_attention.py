@@ -7,9 +7,14 @@ PyTorch version, `window_attention_plain`, for tensors on the CPU, through
 the registered operator `yolact_torch::window_attention`, so that
 `torch.export` records the call and an exported program launches the kernel.
 It counts its kernel launches in `window_attention.launches`. The operator's
-backward (`register_autograd`) recomputes the plain version from the saved
-qkv and bias, as the JAX package's custom_vjp does through its XLA form, so
-no [*, N, N] residual is kept. The region ids get no gradient.
+backward (`register_autograd`) keeps only qkv and the bias, so no [*, N, N]
+residual is kept, and goes through `window_attention_backward`: for bf16
+tensors on the card, the hand-written backward kernel (counted in
+`window_attention.backward_launches`), which recomputes each window's
+softmax in its tile; for float32 on the card and for the CPU, the plain
+version recomputed under autograd (`window_attention_backward_plain`), as
+the JAX package's custom_vjp does through its XLA form. The region ids get
+no gradient.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: `q * scale` is rounded to the compute dtype (the scale
@@ -37,42 +42,55 @@ KERNEL_HEAD_DIM = 32
 # compiled with through `kernel_attributes`).
 GROUPS_PER_BLOCK = 2
 BLOCKS_PER_SM = 2
+# The bf16 backward kernel's: one group a block, three blocks a
+# multiprocessor (`kernel_attributes(backward=True)`).
+BACKWARD_BLOCKS_PER_SM = 3
 
 
 @dataclass(frozen=True)
 class Geometry:
-    """The bf16 launch: `blocks` persistent blocks hold `groups` groups of
-    four warps (GROUPS_PER_BLOCK a block; a last odd one idles). Group g takes
-    head g % heads and walks windows g // heads, + per_head, ... below bnw,
-    one (window, head) unit at a time; groups is per_head * heads."""
+    """A bf16 launch: `blocks` persistent blocks hold `groups` groups of four
+    warps (`per_block` a block; a last odd one idles). Group g takes head
+    g % heads and walks windows g // heads, + per_head, ... below bnw, one
+    (window, head) unit at a time; groups is per_head * heads."""
     bnw: int
     heads: int
     blocks: int
     groups: int
     per_head: int
+    per_block: int = GROUPS_PER_BLOCK
 
     def units(self, block: int) -> List[Tuple[int, int]]:
         """The (window, head) units block `block` walks, group by group, each
         group's in its order."""
         return [(w, g % self.heads)
-                for g in range(block * GROUPS_PER_BLOCK,
-                               min((block + 1) * GROUPS_PER_BLOCK, self.groups))
+                for g in range(block * self.per_block,
+                               min((block + 1) * self.per_block, self.groups))
                 for w in range(g // self.heads, self.bnw, self.per_head)]
 
 
 @lru_cache(maxsize=64)
-def kernel_geometry(bnw: int, heads: int, sms: int) -> Geometry:
+def kernel_geometry(bnw: int, heads: int, sms: int, per_block: int = GROUPS_PER_BLOCK,
+                    blocks_per_sm: int = BLOCKS_PER_SM) -> Geometry:
     """The bf16 kernel's launch for bnw windows of `heads` heads on a card of
-    `sms` multiprocessors: as many groups as stay resident, a whole number for
+    `sms` multiprocessors (blocks of `per_block` groups, `blocks_per_sm`
+    resident on each): as many groups as stay resident, a whole number for
     every head and at most one a window, so that each head's windows are
     dealt round-robin to the same number of groups and a group's bias stays
     that of one head for its whole walk."""
     if bnw <= 0 or heads <= 0 or sms <= 0:
         raise ValueError(f'kernel_geometry: bnw={bnw}, heads={heads}, sms={sms}')
-    per_head = max(1, min(bnw, sms * BLOCKS_PER_SM * GROUPS_PER_BLOCK // heads))
+    per_head = max(1, min(bnw, sms * blocks_per_sm * per_block // heads))
     groups = per_head * heads
-    return Geometry(bnw=bnw, heads=heads, blocks=-(-groups // GROUPS_PER_BLOCK),
-                    groups=groups, per_head=per_head)
+    return Geometry(bnw=bnw, heads=heads, blocks=-(-groups // per_block),
+                    groups=groups, per_head=per_head, per_block=per_block)
+
+
+def backward_geometry(bnw: int, heads: int, sms: int) -> Geometry:
+    """The bf16 backward kernel's launch: kernel_geometry's dealing with one
+    group a block and BACKWARD_BLOCKS_PER_SM blocks a multiprocessor, so
+    blocks == groups; group g's d_bias partial is row g of its scratch."""
+    return kernel_geometry(bnw, heads, sms, 1, BACKWARD_BLOCKS_PER_SM)
 
 
 @lru_cache(maxsize=None)
@@ -186,29 +204,84 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, grad):
     qkv, bias = ctx.saved_tensors
-    with torch.enable_grad(), torch.autocast(qkv.device.type, enabled=False):
-        qkv, bias = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
-        out = window_attention_plain(qkv, bias, ctx.region, ctx.heads)
-        d_qkv, d_bias = torch.autograd.grad(out, (qkv, bias), grad)
+    d_qkv, d_bias = window_attention_backward(qkv, bias, ctx.region, ctx.heads,
+                                              grad.contiguous())
     return d_qkv, d_bias, None, None
 
 
 _window_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
+def window_attention_backward_plain(qkv, bias, region: Optional[torch.Tensor], heads: int,
+                                    grad) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_qkv, d_bias) of window_attention_plain at (qkv, bias, region) for
+    the incoming gradient `grad` [B*nW, N, C]: the plain version recomputed
+    under autograd."""
+    with torch.enable_grad(), torch.autocast(qkv.device.type, enabled=False):
+        qkv, bias = qkv.detach().requires_grad_(), bias.detach().requires_grad_()
+        out = window_attention_plain(qkv, bias, region, heads)
+        d_qkv, d_bias = torch.autograd.grad(out, (qkv, bias), grad)
+    return d_qkv, d_bias
+
+
+def window_attention_backward(qkv, bias, region: Optional[torch.Tensor], heads: int,
+                              grad) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's backward: (d_qkv, d_bias) for the incoming gradient
+    `grad` [B*nW, N, C] (contiguous, qkv's dtype and device). bf16 tensors on
+    the card launch the backward kernel (csrc/window_attention.cu; two
+    launches, counted once in `window_attention.backward_launches`); float32
+    on the card, which no training path runs at speed, and the CPU take
+    window_attention_backward_plain."""
+    _check(qkv, bias, region, heads)
+    bnw, n, c3 = qkv.shape
+    if grad.shape != (bnw, n, c3 // 3) or grad.dtype != qkv.dtype or \
+            grad.device != qkv.device or not grad.is_contiguous():
+        raise ValueError(f'window_attention_backward: grad must be contiguous '
+                         f'[{bnw}, {n}, {c3 // 3}] of qkv\'s dtype and device, got '
+                         f'{grad.dtype} {tuple(grad.shape)}')
+    if qkv.device.type == 'cpu' or qkv.dtype != torch.bfloat16:
+        return window_attention_backward_plain(qkv, bias, region, heads, grad)
+    c = c3 // 3
+    if n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM:
+        raise ValueError(f'window_attention_backward: the kernel takes {KERNEL_TOKENS} tokens '
+                         f'and head width {KERNEL_HEAD_DIM}, got {n} and {c // heads}')
+    d_qkv, d_bias = torch.empty_like(qkv), torch.empty_like(bias)
+    if bnw == 0:
+        return d_qkv, d_bias.zero_()
+    index = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
+    geo = backward_geometry(bnw, heads, _sm_count(index))
+    part = torch.empty((geo.groups, n, n), dtype=torch.float32, device=qkv.device)
+    fn = _build.load('window_attention').window_attention_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
+                      None if region is None else region.data_ptr(), grad.data_ptr(),
+                      d_qkv.data_ptr(), d_bias.data_ptr(), part.data_ptr(),
+                      bnw, heads, 0 if region is None else region.shape[0],
+                      geo.blocks, geo.groups, geo.per_head, stream)
+    window_attention.backward_launches += 1
+    return d_qkv, d_bias
+
+
 window_attention.launches = 0
+window_attention.backward_launches = 0
 
 
 ATTRIBUTE_KEYS = ('groups_per_block', 'blocks_per_sm', 'stages', 'threads', 'smem_bytes',
                   'registers', 'spill_bytes')
 
 
-def kernel_attributes() -> dict:
-    """The compiled bf16 kernel's shape: groups a block, blocks a
-    multiprocessor, ring slots a group, threads and dynamic shared memory
-    bytes a block, and the registers and local (spill) bytes a thread."""
+def kernel_attributes(backward: bool = False) -> dict:
+    """The compiled bf16 kernel's shape (the backward kernel's with
+    `backward`): groups a block, blocks a multiprocessor, ring slots a group,
+    threads and dynamic shared memory bytes a block, and the registers and
+    local (spill) bytes a thread."""
     out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
-    fn = _build.load('window_attention').window_attention_attributes
+    lib = _build.load('window_attention')
+    fn = lib.window_attention_backward_attributes if backward else \
+        lib.window_attention_attributes
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.launch(fn, ctypes.addressof(out))
