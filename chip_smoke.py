@@ -61,6 +61,15 @@ Phases, in order; any failure exits nonzero:
      and no other swin kernel, and its float32 network outputs are
      also held to the composed form's on the card. Then each swin stage's
      blocks alone in each form, timed with CUDA events;
+  7b. swin_large_coco (12x12 windows): kernel 3's 144-token kernels at the
+     four stage shapes of 544/b16, bf16 and float32, shifted and unshifted,
+     and kernel 4 on the same stages' rows (C = 192-768 fused, 1536 in three
+     launches), bf16 and float32, each against its plain version and twice
+     bit-equal in bf16, timed (events and device time) beside its bound;
+     kernel 3's bf16 backward at 144 tokens must refuse; detect_fixed at b16
+     bf16 and b2 float32 with the launch counters set to 0 just before (24
+     launches each of kernels 3 and 4, none of 5-6), and one profiled bf16
+     call's launches and device ms by kernel beside the path's bound;
   8. training: (a) kernels 3-6 under autograd at swin_tiny's training
      shapes (544, train_bs 8, bf16; the block kernels on the shifted windows
      of the padded map): forward and gradients against the plain
@@ -142,7 +151,10 @@ for kernels 3-6 the swin artifact's call, swin_tiny_coco/export_mixed.
 Kernels 3-6 also carry `train` (their launches a
 'composed' and a 'mixed' training step and, per stage, forward and backward
 ms under autograd), `backward_ms` and `backward_device_ms` (stage 0) and
-`grad_rel_err` (the worst stage); `launches_by_path` has the four training
+`grad_rel_err` (the worst stage). The rows window_attention_n144 and
+swin_mlp_wide are phase 7b's (stage 0 and C = 1536 at the top level,
+`path_device_ms` and `path_bound_ms` over one bf16 call, `launches` of that
+call). `launches_by_path` has the four training
 paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
 swin_tiny_coco/train_bfloat16, swin_tiny_coco/train_mixed_bfloat16, over 8,
 8, 8 and 2 steps), and phase 10's: the traditional paths
@@ -217,6 +229,11 @@ SWIN_STAGES = ((6400, 400, 96, 3, 295936), (1600, 100, 192, 6, 73984),
 SWIN_DEPTHS = (2, 2, 6, 2)
 # (side of the stage's feature map, side padded to a multiple of the window)
 SWIN_MAPS = ((136, 140), (68, 70), (34, 35), (17, 21))
+# swin_large (window 12) at 544, batch 16: (windows B*nW, windows per image
+# nW, C, heads, MLP rows B*h*w) of stages 0-3, and (side, padded side).
+SWIN_LARGE_STAGES = ((2304, 144, 192, 6, 295936), (576, 36, 384, 12, 73984),
+                     (144, 9, 768, 24, 18496), (64, 4, 1536, 48, 4624))
+SWIN_LARGE_MAPS = ((136, 144), (68, 72), (34, 36), (17, 24))
 # The swin kernels each block form launches, once per block and forward.
 SWIN_KERNELS = ('window_attention', 'swin_mlp', 'attn_block', 'swin_block')
 SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
@@ -263,8 +280,8 @@ FORM_REL_TOL = 1e-4
 GROUPS = (
     ('suppression kernel', r'suppression_kernel'),
     ('mask_finalize kernel', r'mask_finalize_kernel'),
-    ('window_attention kernel', r'window_attention_(bf16|f32)_kernel'),
-    ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel'),
+    ('window_attention kernel', r'window_attention_(n144_)?(bf16|f32)_kernel'),
+    ('swin_mlp kernel', r'mlp_bf16_sm90_kernel|mlp_f32_kernel|mlp_wide_\w+_kernel'),
     ('attn_block kernel', r'attn_block_\w*kernel|attn_heads_\w*kernel|proj_rows_\w*kernel'),
     ('swin_block kernel', r'swin_block_\w*kernel'),
     ('layer norm', r'layer_norm|LayerNorm'),
@@ -1359,6 +1376,226 @@ def phase_stage_forms(det, dev):
     best = [min(table, key=lambda f: table[f][i]) for i in range(len(SWIN_MAPS))]
     print(f'  fastest form per stage: {best}, sum '
           f'{sum(table[f][i] for i, f in enumerate(best)):.4f} ms')
+
+
+def _kernel_launches(fn, patterns):
+    """Device ms and launches of one call of fn by CUDA kernel name pattern
+    (first match wins), under torch.profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: dict(device_ms=0.0, launches=0) for name in patterns}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((n for n, pat in patterns.items() if re.search(pat, e.key)), None)
+        if name is not None:
+            out[name]['device_ms'] += e.self_device_time_total / 1e3
+            out[name]['launches'] += e.count
+    return out
+
+
+def _window_bound(bnw, heads, c, n, shifted):
+    """Kernel 3's least ms at n tokens: qkv, bias and region read once, out
+    written once, in bf16; the two products of every window and head."""
+    n_bytes = (bnw * n * 4 * c + heads * n * n) * 2 + (bnw * n * 4 if shifted else 0)
+    return _bound_ms(n_bytes, bnw * heads * 4 * n * n * (c // heads), BF16_PEAK)
+
+
+def _mlp_bound(rows, c):
+    """Kernel 4's least ms: x and the parameters read once, y written once,
+    in bf16; the two products."""
+    n_bytes = 2 * rows * c * 2 + 8 * c * c * 2 + 7 * c * 4
+    return _bound_ms(n_bytes, 16 * rows * c * c, BF16_PEAK)
+
+
+def phase_swin_large(dev):
+    """swin_large_coco (12x12 windows, C 192-1536) on the card. Kernel 3's
+    144-token kernels at the four stage shapes of 544/b16, bf16 and float32,
+    shifted and unshifted, against the plain version; kernel 4 on the same
+    stages' rows (C = 192 / 384 / 768 fused, 1536 in three launches) against
+    its plain version; each bf16 form twice bit-equal, timed with CUDA
+    events and in device time beside its bound. Kernel 3's bf16 backward at
+    144 tokens must refuse. Then one seeded swin_large_coco Detector at
+    batch 16 in bf16 and at batch 2 in float32: detect_fixed with the launch
+    counters set to 0 just before (24 of kernel 3 and 24 of kernel 4, none of
+    kernels 5-6), one profiled bf16 call's device ms and launches by kernel
+    beside the bound of its launches. Returns the two kernel rows and the
+    bf16 path's launch counts."""
+    import torch
+    from yolact_minimal_torch.config import get_config
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
+    from yolact_minimal_torch.ops.window_attention import (kernel_attributes,
+                                                           window_attention,
+                                                           window_attention_backward,
+                                                           window_attention_plain)
+    from yolact_minimal_torch.pipeline import Detector
+    g = torch.Generator(device=dev).manual_seed(7)
+    rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    n, attention, mlp = 144, [], []
+    for stage, ((bnw, nw, c, heads, rows), (_, side)) in enumerate(
+            zip(SWIN_LARGE_STAGES, SWIN_LARGE_MAPS)):
+        region = torch.from_numpy(shifted_window_regions(side, side, 12, 6)).to(dev)
+        qkv32, bias32 = rand(bnw, n, 3 * c), rand(heads, n, n) * 0.1
+        worst = {}
+        for dtype, tol in ((torch.float32, SWIN_F32_REL_TOL), (torch.bfloat16, SWIN_BF16_REL_TOL)):
+            qkv, bias = qkv32.to(dtype), bias32.to(dtype)
+            for reg in (None, region):
+                got = window_attention(qkv, bias, reg, heads)
+                torch.cuda.synchronize()
+                err, rel = _rel_err(got, window_attention_plain(qkv, bias, reg, heads))
+                _check(got.dtype == dtype and rel <= tol,
+                       f'window_attention 144 tokens stage {stage} {dtype} '
+                       f'{"shifted" if reg is not None else "unshifted"}: |kernel - plain| '
+                       f'{err:.3g} is {rel:.3g} of max |plain| (> {tol:.3g})')
+                worst[dtype] = max(worst.get(dtype, (0.0, 0.0)), (err, rel))
+                if dtype == torch.bfloat16:
+                    _check(torch.equal(got, window_attention(qkv, bias, reg, heads)),
+                           f'window_attention 144 tokens stage {stage}: two launches differ')
+                del got
+        qkv, bias = qkv32.bfloat16(), bias32.bfloat16()
+        del qkv32, bias32
+        if stage == 0:
+            try:
+                window_attention_backward(qkv, bias, region, heads, qkv[..., :c].contiguous())
+                _check(False, 'the bf16 backward at 144 tokens did not refuse')
+            except ValueError as e:
+                print(f'kernel 3 bf16 backward at 144 tokens refuses: {e}')
+        ms = _time_ms(lambda: window_attention(qkv, bias, region, heads))
+        device_ms = _device_ms(lambda: window_attention(qkv, bias, region, heads))
+        plain_ms = _time_ms(lambda: window_attention_plain(qkv, bias, region, heads), warmup=1,
+                            iters=5)
+        bound, by = _window_bound(bnw, heads, c, n, True)
+        print(f'kernel window_attention_n144 stage {stage} qkv [{bnw}, {n}, {3 * c}] heads '
+              f'{heads} bf16 shifted: {ms:.4f} ms (device {device_ms:.4f}), plain '
+              f'{plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / device_ms:.1%} of it; '
+              f'|kernel - plain| / max |plain|: bf16 {worst[torch.bfloat16][1]:.3g}, float32 '
+              f'{worst[torch.float32][1]:.3g}; two bf16 launches bit-equal')
+        attention.append(dict(shape=[bnw, n, 3 * c], heads=heads, ms=ms, device_ms=device_ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                              max_abs_err=worst[torch.bfloat16][0],
+                              max_abs_err_f32=worst[torch.float32][0]))
+        del qkv, bias, region
+        x32 = rand(rows, c)
+        params = (1.0 + 0.1 * rand(c), 0.1 * rand(c), 0.05 * rand(4 * c, c),
+                  0.05 * rand(4 * c), 0.05 * rand(c, 4 * c), 0.05 * rand(c))
+        worst = {}
+        for dtype, tol in ((torch.float32, SWIN_F32_REL_TOL), (torch.bfloat16, SWIN_BF16_REL_TOL)):
+            x = x32.to(dtype)
+            got = mlp_block(x, *params)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(got, mlp_block_plain(x, *params))
+            _check(got.dtype == dtype and rel <= tol,
+                   f'swin_mlp C = {c} {dtype}: |kernel - plain| {err:.3g} is {rel:.3g} of max '
+                   f'|plain| (> {tol:.3g})')
+            worst[dtype] = (err, rel)
+            if dtype == torch.bfloat16:
+                _check(torch.equal(got, mlp_block(x, *params)),
+                       f'swin_mlp C = {c}: two launches differ')
+            del got
+        x = x32.bfloat16()
+        del x32
+        args = (x, params[0], params[1], params[2].bfloat16(), params[3],
+                params[4].bfloat16(), params[5])
+        ms = _time_ms(lambda: mlp_block(*args))
+        device_ms = _device_ms(lambda: mlp_block(*args))
+        plain_ms = _time_ms(lambda: mlp_block_plain(*args), warmup=1, iters=5)
+        bound, by = _mlp_bound(rows, c)
+        geo = kernel_geometry(c, rows)
+        print(f'kernel swin_mlp C = {c} x [{rows}, {c}] bf16: {ms:.4f} ms (device '
+              f'{device_ms:.4f}, {16 * rows * c * c / device_ms / 1e9:.1f} TFLOP/s), plain '
+              f'{plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / device_ms:.1%} of it; '
+              f'|kernel - plain| / max |plain|: bf16 {worst[torch.bfloat16][1]:.3g}, float32 '
+              f'{worst[torch.float32][1]:.3g}; geometry {geo}')
+        mlp.append(dict(shape=[rows, c], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, geometry=geo,
+                        max_abs_err=worst[torch.bfloat16][0],
+                        max_abs_err_f32=worst[torch.float32][0]))
+        del x, args, params
+        torch.cuda.empty_cache()
+
+    counters = _counters('swin_large_coco')
+    launches = {}
+    for dtype, batch in (('float32', 2), ('bfloat16', BATCH)):
+        cfg = get_config('swin_large_coco', img_size=IMG, nms_score_thre=SCORE_THRE,
+                         compute_dtype=dtype)
+        det = Detector(cfg, device=dev, seed=0)
+        images = torch.randn(batch, IMG, IMG, 3, device=dev, generator=g)
+        det.detect_fixed(images, IMG)                       # warm-up
+        torch.cuda.synchronize()
+        _zero_counters(counters)
+        t0 = time.perf_counter()
+        dets, masks = det.detect_fixed(images, IMG)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counters(counters)
+        print(f'swin_large_coco detect_fixed {dtype} b{batch}: {host_ms:.3f} ms a call, '
+              f'launches {launches}, {int(dets.valid.sum())}/{batch * SLOTS} valid')
+        _check(launches['window_attention'] == 24 and launches['swin_mlp'] == 24 and
+               launches['attn_block'] == 0 and launches['swin_block'] == 0 and
+               launches['window_attention_backward'] == 0,
+               f'swin_large_coco {dtype}: expected 24 launches of kernels 3 and 4 and none '
+               f'of kernels 5-6, got {launches}')
+        _check(masks.shape == (batch, SLOTS, IMG, IMG) and int(dets.valid.sum()) == batch * SLOTS,
+               f'swin_large_coco {dtype}: the slate did not fill')
+    by_kernel = _kernel_launches(lambda: det.detect_fixed(images, IMG), {
+        'window_attention_n144': r'window_attention_n144_bf16_kernel',
+        'window_attention_n49': r'window_attention_(bf16|f32)_kernel',
+        'swin_mlp_fused': r'mlp_bf16_sm90_kernel',
+        'swin_mlp_wide_ln': r'mlp_wide_ln_kernel',
+        'swin_mlp_wide_gemm': r'mlp_wide_gemm_kernel'})
+    print(f'swin_large_coco bf16 b{BATCH}, one profiled detect_fixed: {by_kernel}')
+    depths = (2, 2, 18, 2)
+    want = dict(window_attention_n144=24, window_attention_n49=0, swin_mlp_fused=22,
+                swin_mlp_wide_ln=2, swin_mlp_wide_gemm=4)
+    _check(all(by_kernel[k]['launches'] == v for k, v in want.items()),
+           f'swin_large_coco bf16 kernels by name: expected {want}, got {by_kernel}')
+    # the path's bound: each block's launch at its stage's shapes, half of them shifted
+    wa_bound = sum(d / 2 * (_window_bound(bnw, h, c, n, False)[0] +
+                            _window_bound(bnw, h, c, n, True)[0])
+                   for d, (bnw, _, c, h, _) in zip(depths, SWIN_LARGE_STAGES))
+    fused_bound = sum(d * _mlp_bound(rows, c)[0]
+                      for d, (_, _, c, _, rows) in zip(depths[:3], SWIN_LARGE_STAGES[:3]))
+    wide_bound = depths[3] * _mlp_bound(SWIN_LARGE_STAGES[3][4], SWIN_LARGE_STAGES[3][2])[0]
+    wa_ms = by_kernel['window_attention_n144']['device_ms']
+    fused_ms = by_kernel['swin_mlp_fused']['device_ms']
+    wide_ms = sum(by_kernel[k]['device_ms'] for k in ('swin_mlp_wide_ln', 'swin_mlp_wide_gemm'))
+    print(f'  path device ms (bound ms): kernel 3 at 144 tokens {wa_ms:.3f} ({wa_bound:.3f}), '
+          f'kernel 4 fused C = 192-768 {fused_ms:.3f} ({fused_bound:.3f}), kernel 4 at C = 1536 '
+          f'{wide_ms:.3f} ({wide_bound:.3f})')
+    del det, images, dets, masks
+    torch.cuda.empty_cache()
+    found = [
+        dict(name='window_attention_n144', route='cuda',
+             source='yolact_minimal_torch/csrc/window_attention.cu',
+             replaces='yolact_minimal_tpu/ops/window_attention.py:154',
+             max_abs_err=attention[0]['max_abs_err'],
+             agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
+                       f'{SWIN_F32_REL_TOL:.3g} of max |plain|, swin_large 4 stage shapes, '
+                       f'shifted and unshifted; two bf16 launches bit-equal',
+             ms=attention[0]['ms'], kernel_ms=attention[0]['ms'],
+             device_ms=attention[0]['device_ms'], plain_ms=attention[0]['plain_ms'],
+             bound_ms=attention[0]['bound_ms'], bound_by=attention[0]['bound_by'],
+             peak=BF16_PEAK, path_device_ms=wa_ms, path_bound_ms=wa_bound,
+             attributes=kernel_attributes(wide=True), per_stage=attention,
+             launches=by_kernel['window_attention_n144']['launches']),
+        dict(name='swin_mlp_wide', route='cuda', source='yolact_minimal_torch/csrc/swin_mlp.cu',
+             replaces='yolact_minimal_tpu/ops/swin_mlp.py:128',
+             max_abs_err=mlp[3]['max_abs_err'],
+             agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
+                       f'{SWIN_F32_REL_TOL:.3g} of max |plain| at C = 192 / 384 / 768 / 1536 '
+                       f'on swin_large rows; two bf16 launches bit-equal',
+             ms=mlp[3]['ms'], kernel_ms=mlp[3]['ms'], device_ms=mlp[3]['device_ms'],
+             plain_ms=mlp[3]['plain_ms'], bound_ms=mlp[3]['bound_ms'],
+             bound_by=mlp[3]['bound_by'], peak=BF16_PEAK, path_device_ms=wide_ms,
+             path_bound_ms=wide_bound, fused_path_device_ms=fused_ms,
+             fused_path_bound_ms=fused_bound, per_stage=mlp,
+             launches=by_kernel['swin_mlp_wide_ln']['launches'])]
+    return found, launches
 
 
 def phase_numerics(dev, name, det_bf16, image, form='composed', composed_out=None):
@@ -3180,6 +3417,8 @@ def main():
             phase_stage_forms(det, dev)
         del det, images, composed_out
         torch.cuda.empty_cache()
+    large, by_path['swin_large_coco'] = phase_swin_large(dev)
+    kernels += large
     batches = _train_batches(max(TRAIN_STEPS + 2, 1 + REMAT_STEPS))
     train_paths, train_numbers = phase_train(dev, smi, kernels, batches)
     by_path.update(train_paths)
@@ -3193,7 +3432,8 @@ def main():
                 'window_attention': 'swin_tiny_coco/composed', 'swin_mlp': 'swin_tiny_coco/composed',
                 'attn_block': 'swin_tiny_coco/attn_block', 'swin_block': 'swin_tiny_coco/whole'}
     for k in kernels:
-        k['launches'] = by_path[own_path[k['name']]][k['name']]
+        if k['name'] in own_path:        # the swin_large rows count their own (phase 7b)
+            k['launches'] = by_path[own_path[k['name']]][k['name']]
         _check(k['launches'] > 0, f'kernel {k["name"]} was not launched on its path')
         k['launches_by_path'] = {p: c[k['name']] for p, c in by_path.items() if k['name'] in c}
         if k['name'] == 'window_attention':

@@ -224,6 +224,113 @@ def test_window_attention_kernel_is_built_as_the_geometry_assumes(card):
     assert 0 < attrs['registers'] * attrs['threads'] * BLOCKS_PER_SM <= 65536
 
 
+# Swin-L at window 12, 544, batch 16: (heads, windows B*nW, windows an image
+# nW) of stages 0-3 (sides 136 / 68 / 34 / 17 padded to 144 / 72 / 36 / 24),
+# then window counts that leave the 144-token kernel's groups idle or uneven.
+WIDE_CASES = [(6, 2304, 144), (12, 576, 36), (24, 144, 9), (48, 64, 4)] + \
+    [(heads, bnw, 1) for heads in (6, 48) for bnw in (1, 2, 7)]
+
+
+@pytest.mark.parametrize('heads,bnw,nw', WIDE_CASES)
+@pytest.mark.parametrize('masked', [False, True])
+def test_window_attention_144_token_kernel_matches_plain(card, heads, bnw, nw, masked):
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    rng = np.random.RandomState(4)
+    c, side = heads * 32, int(nw ** 0.5) * 12
+    qkv = torch.from_numpy(rng.randn(bnw, 144, 3 * c).astype(np.float32)).to(card, torch.bfloat16)
+    bias = torch.from_numpy((rng.randn(heads, 144, 144) * 0.1).astype(np.float32)).to(
+        card, torch.bfloat16)
+    region = torch.from_numpy(shifted_window_regions(side, side, 12, 6)).to(card) \
+        if masked else None
+    before = window_attention.launches
+    got = window_attention(qkv, bias, region, heads)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    ref = window_attention_plain(qkv, bias, region, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape == (bnw, 144, c)
+    _assert_close_rel(got, ref, 2.0 ** -7)
+    # a fixed unit order and no atomics: two launches, the same bits
+    assert torch.equal(window_attention(qkv, bias, region, heads), got)
+    # the float32 kernel on the same windows (one image's when masked, else at
+    # most 64: it is slow)
+    q32, b32 = qkv[:nw if masked else 64].float(), bias.float()
+    before = window_attention.launches
+    got = window_attention(q32, b32, region, heads)
+    assert window_attention.launches == before + 1
+    _assert_close_rel(got, window_attention_plain(q32, b32, region, heads), 1e-5)
+
+
+def test_window_attention_144_token_kernel_is_built_as_the_geometry_assumes(card):
+    from yolact_minimal_torch.ops.window_attention import (WIDE_GROUPS_PER_BLOCK,
+                                                           kernel_attributes)
+    attrs = kernel_attributes(wide=True)
+    assert attrs['groups_per_block'] == WIDE_GROUPS_PER_BLOCK and attrs['blocks_per_sm'] == 1
+    assert attrs['threads'] == 96 * WIDE_GROUPS_PER_BLOCK
+    assert 0 < attrs['smem_bytes'] <= 232448 and attrs['spill_bytes'] == 0
+    assert 0 < attrs['registers'] * attrs['threads'] <= 65536
+
+
+def test_window_attention_144_token_backward_refuses_bf16(card):
+    """No backward kernel at 144 tokens: bf16 refuses, float32 takes the
+    plain recompute, as at 49 tokens."""
+    from yolact_minimal_torch.models.swin import shifted_window_regions
+    from yolact_minimal_torch.ops.window_attention import (window_attention_backward,
+                                                           window_attention_backward_plain)
+    rng = np.random.RandomState(5)
+    heads, bnw = 12, 72
+    dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    qkv, bias = dev(rng.randn(bnw, 144, 3 * heads * 32)), dev(rng.randn(heads, 144, 144) * 0.1)
+    grad = dev(rng.randn(bnw, 144, heads * 32))
+    region = torch.from_numpy(shifted_window_regions(72, 72, 12, 6)).to(card)
+    before = window_attention.backward_launches
+    with pytest.raises(ValueError, match='no backward kernel for 144-token windows'):
+        window_attention_backward(qkv.bfloat16(), bias.bfloat16(), region, heads,
+                                  grad.bfloat16())
+    q = qkv.bfloat16().requires_grad_()
+    with pytest.raises(ValueError, match='no backward kernel for 144-token windows'):
+        window_attention(q, bias.bfloat16(), region, heads).backward(grad.bfloat16())
+    got = window_attention_backward(qkv, bias, region, heads, grad)
+    want = window_attention_backward_plain(qkv, bias, region, heads, grad)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert window_attention.backward_launches == before
+
+
+@pytest.mark.parametrize('dtype,tol', [('float32', 1e-4), ('bfloat16', 0.037)])
+def test_swin_large_detect_fixed_matches_the_reference(card, dtype, tol):
+    """swin_large_coco at 544, b2, on the benchmark's weights: the network's
+    four outputs against the float32 plain reference (benchmark/reference/
+    yolact_window.py) in relative L2, float32 to 1e-4 (summation order) and
+    bf16 to the benchmark cell's net_gap limit; 24 launches each of kernels 3
+    and 4 in both dtypes; the slate and masks come back."""
+    from benchmark.core import weights_window
+    from benchmark.reference.yolact_window import Yolact as Reference
+    from yolact_minimal_torch.pipeline import Detector
+    import json
+    from pathlib import Path
+    model = json.loads((Path(__file__).resolve().parents[1] / 'benchmark' / 'configs' /
+                        'swin_large_coco.json').read_text())['model']
+    sd = weights_window.make_state_dict(model, False, 3, card)
+    cfg = get_config('swin_large_coco', img_size=544, compute_dtype=dtype, nms_score_thre=0.002)
+    det = Detector(cfg, state_dict=sd, device=card)
+    images = torch.randn(2, 544, 544, 3, generator=torch.Generator().manual_seed(2))
+    kept = []
+    hook = det.model.register_forward_hook(lambda _m, _a, out: kept.append(out))
+    before = window_attention.launches, mlp_block.launches
+    dets, masks = det.detect_fixed(images.numpy(), 544)
+    torch.cuda.synchronize()
+    hook.remove()
+    assert (window_attention.launches - before[0], mlp_block.launches - before[1]) == (24, 24)
+    assert masks.shape == (2, 100, 544, 544) and int(dets.valid.sum()) == 200
+    ref = Reference(model).to(card).eval()
+    ref.load_state_dict(sd)
+    with torch.no_grad():
+        want = ref(images.to(card))
+    for got, w in zip(kept[0], want):
+        gap = float((got.float() - w).norm() / w.norm())
+        assert gap <= tol, gap
+
+
 def _mlp_inputs(card, rng, rows, c, dtype):
     dev = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
     x = dev(rng.randn(rows, c)).to(dtype)
@@ -235,9 +342,11 @@ def _mlp_inputs(card, rng, rows, c, dtype):
 
 # Row counts one either side of 64 and of 128 rows (the bf16 kernel's tiles:
 # 128 rows at C = 96 and 192, 64 at 384 and 768; a block walks whole tiles,
-# in clusters of one), one row, and stage 3's 4624 rows at C = 768.
+# in clusters of one), one row, and stage 3's 4624 rows at C = 768; at
+# C = 1536 (Swin-L's stage 3: 128-row tiles of three launches) its 4624 rows.
 MLP_ROWS = [(c, rows) for c, first in ((96, 1000), (192, 203), (384, 289), (768, 71))
-            for rows in (first, 1, 63, 65, 127, 129)] + [(768, 4624)]
+            for rows in (first, 1, 63, 65, 127, 129)] + [(768, 4624)] + \
+    [(1536, rows) for rows in (4624, 1, 127, 129)]
 
 
 @pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
@@ -267,7 +376,7 @@ def test_swin_mlp_geometry_covers_the_rows(card, c, rows):
     assert 0 < geo['smem_bytes'] <= 232448 and 0 < geo['registers'] <= 255
 
 
-@pytest.mark.parametrize('c', [96, 192, 384, 768])
+@pytest.mark.parametrize('c', [96, 192, 384, 768, 1536])
 def test_swin_mlp_kernel_is_deterministic(card, c):
     # no atomics and every sum in a fixed order: two launches, the same bits
     x, params = _mlp_inputs(card, np.random.RandomState(2), 1000, c, torch.bfloat16)

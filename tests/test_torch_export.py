@@ -199,7 +199,7 @@ def test_small_swin_mixed_export_calls_all_four_ops(tmp_path):
     calls each kernel's operator where the live model does and gives its
     outputs (tests/test_torch_swin.py holds the live forms to JAX)."""
     torch.manual_seed(0)
-    model = swin.SwinTiny(**SMALL, block_forms=MIXED).eval()
+    model = swin.Swin(**SMALL, block_forms=MIXED).eval()
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.05)
     x = torch.from_numpy(np.random.RandomState(3).normal(size=(2, 72, 72, 3)).astype(np.float32))

@@ -1,5 +1,5 @@
 """The port's swin_tiny detect path against the JAX package: the static tables,
-the weight bridge, SwinTiny's four outputs at a size where every pad happens,
+the weight bridge, Swin's four outputs at a size where every pad happens,
 and swin_tiny_coco through Yolact and Detector.detect_fixed, in each of the
 three block forms ('composed', 'attn_block', 'whole')."""
 import jax
@@ -69,8 +69,8 @@ def test_pad_rowmask_equals_jax(h, hp, shift):
     assert ours.dtype == ref.dtype == np.float32 and ours.shape == ((hp // 7) * (wp // 7), 49)
     np.testing.assert_array_equal(ours, ref)
     assert ours.sum() == h * w
-    on_device = swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'))
-    assert on_device is swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'))   # cached
+    on_device = swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'), 7)
+    assert on_device is swin._rowmask_on(h, w, hp, wp, shift, torch.device('cpu'), 7)   # cached
     np.testing.assert_array_equal(on_device.numpy(), ref)
 
 
@@ -91,7 +91,7 @@ def test_stage_forms_match_jax(form):
     sd = {k.removeprefix('layers.0.'): t
           for k, t in swin_from_jax_params({'stage0': v['params']}, prefix='').items()}
     flags = {f: True for f in JAX_FLAGS[form] if f != 'fused_mlp'}
-    stage = swin.SwinStage(dim, 2, heads, downsample=True, **flags)
+    stage = swin.SwinStage(dim, 2, heads, downsample=True, window=7, **flags)
     stage.load_state_dict(sd, strict=True)
     assert [getattr(b, f) for b in stage.blocks for f in flags] == [True, True]
     assert [b.shift for b in stage.blocks] == [0, 3]
@@ -121,7 +121,7 @@ def test_swin_tiny_outputs_match_jax(small_swin, fused):
     # fused=True: the JAX package's Pallas kernels, in interpret mode here
     x, v = small_swin
     ref = jax.jit(jax_swin.SwinTiny(**SMALL, fused_attn=fused).apply)(v, x)
-    model = swin.SwinTiny(**SMALL)
+    model = swin.Swin(**SMALL)
     model.load_state_dict(swin_from_jax_params(v['params'], prefix=''), strict=True)
     with torch.no_grad():
         ours = model.eval()(torch.from_numpy(x))
@@ -138,8 +138,8 @@ def test_swin_tiny_forms_match_jax_and_composed(small_swin, forms):
     x, v = small_swin
     ref = jax.jit(jax_swin.SwinTiny(**SMALL, fused_attn=True).apply)(v, x)
     sd = swin_from_jax_params(v['params'], prefix='')
-    model = swin.SwinTiny(**SMALL, block_forms=forms)
-    composed = swin.SwinTiny(**SMALL)
+    model = swin.Swin(**SMALL, block_forms=forms)
+    composed = swin.Swin(**SMALL)
     assert list(model.state_dict()) == list(composed.state_dict())
     model.load_state_dict(sd, strict=True)
     composed.load_state_dict(sd, strict=True)
@@ -166,7 +166,7 @@ def test_swin_tiny_forms_match_jax_and_composed(small_swin, forms):
 
 def test_derived_tensors_follow_their_parameters(small_swin):
     _, v = small_swin
-    model = swin.SwinTiny(**SMALL, dtype=torch.bfloat16)
+    model = swin.Swin(**SMALL, dtype=torch.bfloat16)
     block = model.layers[0].blocks[1]
     # calls that need no gradient (the eval path) share one cast per parameter
     # version; calls that do cast afresh, so the gradient reaches the parameters

@@ -138,7 +138,7 @@ def test_train_step_spans_nest_in_order():
 @pytest.mark.parametrize('form', swin.FORMS)
 @pytest.mark.parametrize('training', [False, True])
 def test_swin_forward_opens_two_glue_spans_a_block(form, training):
-    model = swin.SwinTiny(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
+    model = swin.Swin(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
                           block_forms=form, drop_path_rate=0.0)
     model.train(training)
     x = torch.randn(1, IMG, IMG, 3)

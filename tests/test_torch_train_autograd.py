@@ -118,9 +118,9 @@ def test_mlp_block_grads_equal_jax_vjp(c, dtype):
 
 
 def _swin_model(rate=0.2):
-    from yolact_minimal_torch.models.swin import SwinTiny
+    from yolact_minimal_torch.models.swin import Swin
     torch.manual_seed(0)
-    model = SwinTiny(drop_path_rate=rate)
+    model = Swin(drop_path_rate=rate)
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.02)
     return model
@@ -231,7 +231,7 @@ def test_block_ops_pass_opcheck_with_grad(name):
 def _block_pair(rate, form, state_dict):
     """A port SwinBlock (96 wide, 3 heads, shift 3) in `form`, in train mode."""
     from yolact_minimal_torch.models.swin import SwinBlock
-    block = SwinBlock(96, 3, 3, drop_path_rate=rate, fused_attn_block=form == 'attn_block',
+    block = SwinBlock(96, 3, 3, 7, drop_path_rate=rate, fused_attn_block=form == 'attn_block',
                       fused_whole=form == 'whole')
     block.load_state_dict(state_dict, strict=True)
     return block.train()
@@ -317,7 +317,7 @@ def test_whole_block_trains_after_an_inference_mode_forward():
     saves it for autograd, must still take it."""
     from yolact_minimal_torch.models import swin
     swin._cached_table.cache_clear()
-    block = _block_pair(0.0, 'whole', swin.SwinBlock(96, 3, 3).state_dict())
+    block = _block_pair(0.0, 'whole', swin.SwinBlock(96, 3, 3, 7).state_dict())
     x = torch.randn(1, 13, 13, 96)
     with torch.inference_mode():
         block.eval()(x)
@@ -338,7 +338,7 @@ class _OpCalls(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-# the operators a train-mode SwinTiny forward calls in each form, drop_path
+# the operators a train-mode Swin forward calls in each form, drop_path
 # rates linspace(0, 0.2, 12): only block 0 of stage 0 has rate 0
 TRAIN_CALLS = {'composed': dict(window_attention=12, mlp_block=1),
                'attn_block': dict(attn_block=12, mlp_block=1),
@@ -406,8 +406,8 @@ def test_cached_casts_follow_an_optimizer_step():
     """The eval path keeps its bf16 casts and bias gathers cached on the
     parameters' versions: after an in-place optimizer step it sees the new
     weights, and a training forward sends gradients to every parameter."""
-    from yolact_minimal_torch.models.swin import SwinTiny
-    model = SwinTiny(dtype=torch.bfloat16, drop_path_rate=0.0)
+    from yolact_minimal_torch.models.swin import Swin
+    model = Swin(dtype=torch.bfloat16, drop_path_rate=0.0)
     torch.manual_seed(1)
     for p in model.parameters():
         torch.nn.init.normal_(p, std=0.02)
@@ -423,7 +423,7 @@ def test_cached_casts_follow_an_optimizer_step():
     torch.optim.SGD(model.parameters(), lr=1.0).step()
     with torch.no_grad():
         after = model.eval()(x)
-        fresh = SwinTiny(dtype=torch.bfloat16, drop_path_rate=0.0)
+        fresh = Swin(dtype=torch.bfloat16, drop_path_rate=0.0)
         fresh.load_state_dict(model.state_dict())
         want = fresh.eval()(x)
     for a, b, w in zip(before, after, want):

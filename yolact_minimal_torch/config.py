@@ -2,8 +2,9 @@
 
 The port's own copy of the experiment registry (the six reference names plus
 `swin_tiny_custom`), so the PyTorch package depends on nothing outside
-itself. Derived quantities (anchor scales, batch-size-adaptive lr/lr_steps)
-are computed in __post_init__ as the reference config does.
+itself, and `swin_large_coco`, which only the port has. Derived quantities
+(anchor scales, batch-size-adaptive lr/lr_steps) are computed in
+__post_init__ as the reference config does.
 """
 from __future__ import annotations
 
@@ -48,6 +49,19 @@ _COCO_RAW_IDS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19,
                  76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88, 89, 90]
 COCO_LABEL_MAP = {raw: i + 1 for i, raw in enumerate(_COCO_RAW_IDS)}
 
+# The swin backbones by name: embed width, depths, heads (of width 32) a
+# stage, window side and the last block's stochastic depth in training.
+# Swin-T is the JAX package's. Swin-L at window 12 is the published one (Liu
+# et al. 2021, arXiv:2103.14030 section 3.3; microsoft/Swin-Transformer,
+# configs/swin/swin_large_patch4_window12_384_22k.yaml); its drop-path rate
+# 0.3 is what the public Swin-L detection and segmentation configs train with.
+SWIN_SPECS = {
+    'swin_tiny': dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
+                      window=7, drop_path_rate=0.2),
+    'swin_large': dict(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48),
+                       window=12, drop_path_rate=0.3),
+}
+
 # Pixel normalization constants (BGR order).
 NORM_MEAN = np.array([103.94, 116.78, 123.68], dtype=np.float32)
 NORM_STD = np.array([57.38, 57.12, 58.40], dtype=np.float32)
@@ -58,7 +72,7 @@ class Config:
     """Base experiment config == reference `res101_coco`."""
     name: str = 'res101_coco'
     mode: str = 'detect'                     # train | val | detect
-    backbone: str = 'resnet101'              # resnet50 | resnet101 | swin_tiny
+    backbone: str = 'resnet101'              # resnet50 | resnet101 | a SWIN_SPECS name
     img_size: int = 544
     class_names: Tuple[str, ...] = COCO_CLASSES
     continuous_id: Dict[int, int] = field(default_factory=lambda: dict(COCO_LABEL_MAP))
@@ -144,8 +158,14 @@ class Config:
             self.backbone_weight = {
                 'resnet50': 'weights/backbone_res50.pth',
                 'resnet101': 'weights/backbone_res101.pth',
-                'swin_tiny': 'weights/swin_tiny.pth',
             }.get(self.backbone)
+            if self.is_swin:
+                self.backbone_weight = f'weights/{self.backbone}.pth'
+
+    @property
+    def is_swin(self) -> bool:
+        """Whether the backbone is one of SWIN_SPECS."""
+        return self.backbone in SWIN_SPECS
 
     def replace(self, **kw) -> 'Config':
         return dataclasses.replace(self, **kw)
@@ -196,6 +216,10 @@ CONFIG_REGISTRY: Dict[str, dict] = {
     'swin_tiny_custom': dict(backbone='swin_tiny', base_lr=0.00005,
                              optimizer='adamw', weight_decay=0.05,
                              **_custom_overrides()),
+    # the port's own: Swin-L with swin_tiny_coco's neck, heads, postprocess
+    # and AdamW settings (Yolact_minimal has no Swin-L config)
+    'swin_large_coco': dict(backbone='swin_large', base_lr=0.00005,
+                            optimizer='adamw', weight_decay=0.05),
 }
 
 

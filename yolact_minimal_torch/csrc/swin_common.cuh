@@ -211,11 +211,11 @@ __device__ __forceinline__ void mlp_hidden_walk_f32(const float* sa, int last_ro
 // ------------------------------------------- attention, on the CUDA cores ---
 
 // One thread, query row i of one (window, head). q (this row, already scaled
-// and rounded), sk and sv ([N][HD], 16-byte aligned) hold float32 copies of
-// values on T's grid; s[0..N) holds the row's bias and receives the scores in
+// and rounded), sk and sv ([NT][HD], 16-byte aligned) hold float32 copies of
+// values on T's grid; s[0..NT) holds the row's bias and receives the scores in
 // place. sreg is the window's region ids or null. The row of p v (float32,
-// not yet rounded to T) replaces q.
-template <typename T>
+// not yet rounded to T) replaces q. NT is the window's token count.
+template <typename T, int NT = N>
 __device__ __forceinline__ void attention_row(float* q_row, const float* sk, const float* sv,
                                               float* s, const int* sreg, int i) {
   float q[HD];
@@ -226,7 +226,7 @@ __device__ __forceinline__ void attention_row(float* q_row, const float* sk, con
 
   float row_max = -INFINITY;
 #pragma unroll 7
-  for (int j = 0; j < N; ++j) {
+  for (int j = 0; j < NT; ++j) {
     float acc = 0.0f;
 #pragma unroll
     for (int d = 0; d < HD; d += 4) {
@@ -243,7 +243,7 @@ __device__ __forceinline__ void attention_row(float* q_row, const float* sk, con
   }
   float sum = 0.0f;
 #pragma unroll 7
-  for (int j = 0; j < N; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const float e = expf(s[j] - row_max);
     s[j] = e;
     sum += e;
@@ -253,7 +253,7 @@ __device__ __forceinline__ void attention_row(float* q_row, const float* sk, con
 #pragma unroll
   for (int d = 0; d < HD; ++d) o[d] = 0.0f;
 #pragma unroll 7
-  for (int j = 0; j < N; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const float p = round_to<T>(s[j] / sum);
 #pragma unroll
     for (int d = 0; d < HD; d += 4) {

@@ -42,6 +42,8 @@
 //   and are waited on by the products; at C = 768, 73 tiles leave 59 of the
 //   132 multiprocessors idle and each warpgroup's fc1 is a narrow n32
 //   product; at C = 384, 289 tiles take three rounds for 2.2 rounds of work.
+// At C = 1536 (Swin-L's stage 3) bf16 runs in three launches instead, with
+// the hidden activations in device memory (the section before float32).
 // float32: plain FMAs on the CUDA cores, no TF32, summing in index order so
 // that it can be held to a CPU run; BM = 32 rows.
 // Rows beyond R are zero in shared memory and never written.
@@ -381,6 +383,174 @@ int geometry_sm90(int rows, int* g) {
   return 0;
 }
 
+// ------------------------------------- bf16, C = 1536 (Swin-L's stage 3) -----
+//
+// The fused plan does not fit at C = 1536: a 64-row LN(x) tile takes 192 KB
+// of shared memory, and the tile's [64, 1536] float32 fc2 accumulator 384 KB,
+// more than a multiprocessor's registers. So the hidden activations go
+// through device memory, in three launches with the same rounding places:
+// LayerNorm of each row into xn [R, C]; fc1 on xn, + b1, gelu, into h [R,
+// 4C]; fc2 on h, + b2, + x, into y. Both products run in one wgmma kernel on
+// tiles of 128 rows (a warpgroup's 64 each) by 128 output columns: the rows
+// of A and of the weight (K-major, as nn.Linear keeps it) arrive by TMA in
+// 64-wide k slices through a ring of STAGES slots that thread 0 keeps full,
+// as in the fused kernel. Stage 3 at 544, batch 16 has 4,624 rows: h is
+// 57 MB, written once and read once, beside 175 GFLOP of products.
+namespace wide {
+constexpr int C = 1536, H = 4 * C;
+constexpr int BM = 128;                        // rows of a tile
+constexpr int BN = 128;                        // output columns of a tile
+constexpr int BK = 64;                         // k of a ring slot
+constexpr int STAGES = 3;
+constexpr int MINB = 2;                        // blocks a multiprocessor
+constexpr int THREADS = 256;                   // two consumer warpgroups
+constexpr int A_BYTES = BM * 128, SLOT = A_BYTES + BN * 128;
+constexpr int BAR = STAGES * SLOT;             // full[STAGES], empty[STAGES]
+constexpr int SMEM = BAR + 2 * STAGES * 8 + 1024;   // + room to align the base
+constexpr int LN_ROWS = THREADS / 32;          // rows a block of the LayerNorm launch
+static_assert(MINB * (SMEM + 1024) <= 233472, "shared memory of a multiprocessor");
+}  // namespace wide
+
+__global__ void __launch_bounds__(wide::THREADS)
+mlp_wide_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ lns,
+                   const float* __restrict__ lnb, bf16* __restrict__ xn, int rows) {
+  const int row = blockIdx.x * wide::LN_ROWS + threadIdx.x / 32;
+  if (row < rows)
+    layer_norm_row<bf16, bf16, wide::C>(x + static_cast<size_t>(row) * wide::C, lns, lnb, 1.0f,
+                                        xn + static_cast<size_t>(row) * wide::C);
+}
+
+// Output tile (rows blockIdx.y * BM.., columns blockIdx.x * BN..) of
+// A [rows, K] times W^T, W [N, K]: fc1 (FC2 false: K = C, N = 4C; + b1,
+// rounded, gelu, rounded, into out = h) or fc2 (FC2 true: K = 4C, N = C;
+// + b2, + x, rounded once, into out = y). Rows past `rows` load as zeros
+// and are never written.
+template <bool FC2>
+__global__ void __launch_bounds__(wide::THREADS, wide::MINB)
+mlp_wide_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tw, const float* __restrict__ bias,
+                     const bf16* __restrict__ x, bf16* __restrict__ out, int rows) {
+  constexpr int K = FC2 ? wide::H : wide::C, NOUT = FC2 ? wide::C : wide::H;
+  constexpr int KS = K / wide::BK, STAGES = wide::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = sm90::smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + wide::BAR);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.y * wide::BM, n0 = blockIdx.x * wide::BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, wide::THREADS / 32);   // every warp releases every slot
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Thread 0: start the copies of every k slice before `upto`; slice v
+  // waits for the release of slice v - STAGES.
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto && issued < KS; ++issued) {
+      const int s = issued % STAGES;
+      sm90::mbar_wait(empty + s, ((issued / STAGES) & 1) ^ 1);
+      const uint32_t dst = base + s * wide::SLOT;
+      sm90::mbar_expect_tx(full + s, wide::SLOT);
+      sm90::tma_load_2d(dst, &ta, issued * wide::BK, m0, full + s);
+      sm90::tma_load_2d(dst + wide::A_BYTES, &tw, issued * wide::BK, n0, full + s);
+    }
+  };
+  if (threadIdx.x == 0) issue_upto(STAGES);
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int er = 16 * (warp % 4) + lane / 4, ec = 2 * (lane % 4);   // accumulator row, column
+  float acc[wide::BN / 2];
+  for (int k = 0; k < KS; ++k) {
+    if (threadIdx.x == 0) issue_upto(k + STAGES);
+    __syncwarp();
+    sm90::mbar_wait(full + k % STAGES, (k / STAGES) & 1);
+    const uint32_t slot = base + (k % STAGES) * wide::SLOT;
+    const uint64_t da = sm90::sw128_desc(slot + wg * 64 * 128);
+    const uint64_t db = sm90::sw128_desc(slot + wide::A_BYTES);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < wide::BK; kk += 16)
+      sm90::wgmma_ss(acc, sm90::desc_add(da, kk * 2), sm90::desc_add(db, kk * 2),
+                     k > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (lane == 0) sm90::mbar_arrive(empty + k % STAGES);
+  }
+
+  // a lane writes two neighbouring columns of two rows at a time
+#pragma unroll
+  for (int j = 0; j < wide::BN / 8; ++j) {
+    const int col = n0 + 8 * j + ec;
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int g = m0 + wg * 64 + er + 8 * hi;
+      if (g >= rows) continue;
+      const float v0 = acc[4 * j + 2 * hi], v1 = acc[4 * j + 2 * hi + 1];
+      const size_t at = static_cast<size_t>(g) * NOUT + col;
+      uint32_t packed;
+      if constexpr (FC2) {
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+        packed = pack_bf16(__bfloat162float(xv.x) + (v0 + b.x),
+                           __bfloat162float(xv.y) + (v1 + b.y));
+      } else {
+        packed = pack_bf16(gelu_erf(round_to<bf16>(v0 + b.x)),
+                           gelu_erf(round_to<bf16>(v1 + b.y)));
+      }
+      *reinterpret_cast<uint32_t*>(out + at) = packed;
+    }
+  }
+}
+
+int launch_bf16_wide(const void* x, const void* lns, const void* lnb, const void* k1,
+                     const void* b1, const void* k2, const void* b2, void* out, void* xn,
+                     void* h, int rows, cudaStream_t stream) {
+  const int mt = (rows + wide::BM - 1) / wide::BM;
+  CUtensorMap ta1, tw1, ta2, tw2;
+  if (mt > 65535 || !sm90::map_sw128(&ta1, xn, wide::C, rows, wide::BM) ||
+      !sm90::map_sw128(&tw1, k1, wide::C, wide::H, wide::BN) ||
+      !sm90::map_sw128(&ta2, h, wide::H, rows, wide::BM) ||
+      !sm90::map_sw128(&tw2, k2, wide::H, wide::C, wide::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(mlp_wide_gemm_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlp_wide_gemm_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, wide::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bf16* xb = static_cast<const bf16*>(x);
+  mlp_wide_ln_kernel<<<(rows + wide::LN_ROWS - 1) / wide::LN_ROWS, wide::THREADS, 0, stream>>>(
+      xb, static_cast<const float*>(lns), static_cast<const float*>(lnb),
+      static_cast<bf16*>(xn), rows);
+  mlp_wide_gemm_kernel<false><<<dim3(wide::H / wide::BN, mt), wide::THREADS, wide::SMEM,
+                                stream>>>(ta1, tw1, static_cast<const float*>(b1), nullptr,
+                                          static_cast<bf16*>(h), rows);
+  mlp_wide_gemm_kernel<true><<<dim3(wide::C / wide::BN, mt), wide::THREADS, wide::SMEM,
+                               stream>>>(ta2, tw2, static_cast<const float*>(b2), xb,
+                                         static_cast<bf16*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fc1 launch's geometry in geometry_sm90's order: its blocks are one a
+// (row tile, 128 hidden columns), so they outnumber the row tiles.
+int geometry_wide(int rows, int* g) {
+  const int tiles = (rows + wide::BM - 1) / wide::BM;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, mlp_wide_gemm_kernel<false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[9] = {wide::BM, 1, tiles * (wide::H / wide::BN), tiles, wide::STAGES, wide::SMEM,
+                    wide::THREADS, attr.numRegs, static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 9; ++i) g[i] = v[i];
+  return 0;
+}
+
 // ------------------------------------------------------------- float32 -----
 
 template <int C>
@@ -434,9 +604,9 @@ int launch_f32(const void* x, const void* lns, const void* lnb, const void* k1,
 
 // x, out [rows, c]; lns, lnb [c]; k1 [4c, c]; b1 [4c]; k2 [c, 4c]; b2 [c].
 // x, k1, k2 and out are bf16 when is_bf16 is nonzero, else float32; the
-// LayerNorm parameters and biases are float32. c is 96, 192, 384 or 768;
-// any other width, or bf16 weights not 16-byte aligned, returns
-// cudaErrorInvalidValue.
+// LayerNorm parameters and biases are float32. c is 96, 192, 384 or 768,
+// or 1536 in float32; any other width, or bf16 weights not 16-byte aligned,
+// returns cudaErrorInvalidValue.
 extern "C" int swin_mlp(const void* x, const void* lns, const void* lnb,
                         const void* k1, const void* b1, const void* k2,
                         const void* b2, void* out, int rows, int c, int is_bf16,
@@ -452,6 +622,9 @@ extern "C" int swin_mlp(const void* x, const void* lns, const void* lnb,
     SWIN_MLP_CASE(192)
     SWIN_MLP_CASE(384)
     SWIN_MLP_CASE(768)
+    case 1536:        // bf16 takes swin_mlp_wide, which needs room for xn and h
+      return is_bf16 ? static_cast<int>(cudaErrorInvalidValue)
+                     : launch_f32<1536>(x, lns, lnb, k1, b1, k2, b2, out, rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -467,6 +640,19 @@ extern "C" int swin_mlp_geometry(int c, int rows, int* g) {
     case 192: return geometry_sm90<192>(rows, g);
     case 384: return geometry_sm90<384>(rows, g);
     case 768: return geometry_sm90<768>(rows, g);
+    case 1536: return geometry_wide(rows, g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// bf16 at c = 1536: x, out [rows, 1536]; k1 [6144, 1536], k2 [1536, 6144],
+// the LayerNorm parameters and biases as swin_mlp takes them; xn [rows,
+// 1536] and h [rows, 6144] bf16 are room for LN(x) and the hidden
+// activations. Three launches on `stream`.
+extern "C" int swin_mlp_wide(const void* x, const void* lns, const void* lnb, const void* k1,
+                             const void* b1, const void* k2, const void* b2, void* out,
+                             void* xn, void* h, int rows, void* stream) {
+  if (rows <= 0) return 0;
+  return launch_bf16_wide(x, lns, lnb, k1, b1, k2, b2, out, xn, h, rows,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,8 @@
 //     out[w, :, h*32:(h+1)*32] =
 //         softmax(q k^T * 32^-0.5 + bias[h] + (-100 where region ids differ)) v
 //
-// with q, k, v the head's [49, 32] slices of qkv[w] = [49, q | k | v]. The
+// with q, k, v the head's [49, 32] slices of qkv[w] = [49, q | k | v] (Swin-L's
+// 12x12 windows: [144, 32], in window_attention_n144_bf16_kernel below). The
 // region ids are the [nW, 49] int32 map of the shifted partition (null for an
 // unshifted block); window w of the batch-major axis uses row w % nW, and the
 // kernel compares ids itself, so no [nW, 49, 49] mask is ever materialised.
@@ -366,13 +367,13 @@ window_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm, const bf16*
   }
 }
 
-// qkv [rows, c3] bf16 in [N, 32] boxes, 64-byte swizzled.
-bool qkv_map(CUtensorMap* map, const void* qkv, int rows, int c3) {
+// qkv [rows, c3] bf16 in [box_rows, 32] boxes, 64-byte swizzled.
+bool qkv_map(CUtensorMap* map, const void* qkv, int rows, int c3, int box_rows = N) {
   sm90::EncodeTiledFn fn = sm90::encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(qkv) % 16 != 0) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c3), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c3) * sizeof(bf16)};
-  const cuuint32_t box[2] = {HD, N};
+  const cuuint32_t box[2] = {HD, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(qkv), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
@@ -393,6 +394,272 @@ int launch_bf16(const void* qkv, const void* bias, const int* region, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   window_attention_bf16_kernel<<<blocks, BF_THREADS, SMEM, stream>>>(
       tm, static_cast<const bf16*>(bias), region, static_cast<bf16*>(out), bnw, heads, nw, groups,
+      per_head);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ bf16, 144 tokens, Hopper -----
+//
+// Swin-L's 12x12 windows: the same function and rounding places as the
+// 49-token kernel above, tiled for N = 144 = 9 tiles of 16 rows.
+// - Work unit: one (window, head). A group of three warps takes a unit; warp
+//   r owns row tiles r, r + 3 and r + 6 in turn, each against all 144 keys
+//   (18 n8 tiles, 72 scores a thread): a row's whole score vector stays in
+//   the registers of the four lanes that hold it, so, as at 49 tokens, the
+//   softmax needs no running max and nothing is saved. No row or key is
+//   padding.
+// - Loads: a block holds three groups, all on one head (wide_geometry in
+//   ops/window_attention.py deals each head's windows to per_head blocks and
+//   inside a block round-robin to its groups); one block a multiprocessor.
+//   The head's [144, 144] bias is copied once a block into shared memory,
+//   rows padded to 152 elements so that a quad's reads hit distinct banks. A
+//   unit's q, k and v tiles ([144, 32] TMA boxes of qkv, 64-byte swizzle)
+//   arrive in a group's ring of two slots; lane 0 of the group's first warp
+//   issues the next unit while the current one is computed.
+// - Region ids: a thread keeps those of its 36 keys packed four bits each
+//   (ids of the shifted partition are 0..8), read once a unit.
+// - Products, softmax and stores as in the 49-token kernel.
+namespace n144 {
+constexpr int N = 144;                       // tokens of a 12x12 window
+constexpr int KT = N / 16;                   // 16-key tiles (k-steps of p v)
+constexpr int NT = N / 8;                    // 8-key tiles of the scores
+constexpr int WARPS = 3;                     // warps of a group
+constexpr int TILES = KT / WARPS;            // row tiles a warp
+constexpr int GROUPS = 3;                    // groups a block, all on one head
+constexpr int THREADS = GROUPS * WARPS * 32;
+constexpr int STAGES = 2;                    // ring slots a group
+constexpr int LEAD = STAGES;                 // units in flight, the current one included
+constexpr int TILE = N * 64;                 // 144 rows of 64 bytes
+constexpr int SLOT = 3 * TILE;               // q, k, v of one unit
+constexpr int UNIT_BYTES = 3 * N * HD * 2;   // what TMA writes into a slot
+constexpr int BIAS_LD = N + 8;               // elements a bias row in shared memory
+constexpr int BIAS = GROUPS * STAGES * SLOT; // offset of the bias
+constexpr int OUT = BIAS + N * BIAS_LD * 2;  // offset of the warps' output tiles
+constexpr int BAR = OUT + GROUPS * WARPS * 1024;   // per group full[STAGES], empty[STAGES]
+constexpr int SMEM = BAR + GROUPS * 2 * STAGES * 8 + 1024;   // + room to align the base
+static_assert(SLOT % 1024 == 0 && BIAS % 1024 == 0, "tiles on 1024-byte boundaries");
+static_assert(KT % WARPS == 0, "whole row tiles a warp");
+static_assert(SMEM <= 232448, "shared memory");
+}  // namespace n144
+
+// Block b takes head b % heads; its group gi walks windows (b / heads) *
+// GROUPS + gi, + per_head * GROUPS, ... below bnw.
+__global__ void __launch_bounds__(n144::THREADS, 1)
+window_attention_n144_bf16_kernel(const __grid_constant__ CUtensorMap tm,
+                                  const bf16* __restrict__ bias, const int* __restrict__ region,
+                                  bf16* __restrict__ out, int bnw, int heads, int nw,
+                                  int per_head) {
+  // n144's sizes, over the anonymous namespace's 49-token ones
+  constexpr int N = n144::N, KT = n144::KT, NT = n144::NT, WARPS = n144::WARPS;
+  constexpr int TILES = n144::TILES, GROUPS = n144::GROUPS, THREADS = n144::THREADS;
+  constexpr int STAGES = n144::STAGES, LEAD = n144::LEAD, TILE = n144::TILE;
+  constexpr int SLOT = n144::SLOT, UNIT_BYTES = n144::UNIT_BYTES, BIAS_LD = n144::BIAS_LD;
+  constexpr int BIAS = n144::BIAS, OUT = n144::OUT, BAR = n144::BAR;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int grp = threadIdx.x / (WARPS * 32), gtid = threadIdx.x % (WARPS * 32);
+  const int warp = gtid / 32, lane = threadIdx.x % 32;
+  unsigned char* gsm = smem + grp * STAGES * SLOT;
+  const uint32_t ring = sm90::smem_addr(gsm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR) + grp * 2 * STAGES;
+  uint64_t* empty = full + STAGES;
+  const int h = blockIdx.x % heads;
+  const int c = heads * HD;
+
+  // the head's bias, rows padded to BIAS_LD elements, 16 bytes a copy
+  unsigned char* sb = smem + BIAS;
+  {
+    const uint4* hb = reinterpret_cast<const uint4*>(bias + static_cast<size_t>(h) * N * N);
+    for (int e = threadIdx.x; e < N * (N / 8); e += THREADS)
+      *reinterpret_cast<uint4*>(sb + (e / (N / 8)) * BIAS_LD * 2 + (e % (N / 8)) * 16) = hb[e];
+  }
+  if (gtid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, WARPS);        // every warp of the group releases every slot
+    }
+    sm90::fence_mbar_init();
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const int stride = per_head * GROUPS;
+  const int w0 = (blockIdx.x / heads) * GROUPS + grp;
+  const int units = w0 < bnw ? (bnw - 1 - w0) / stride + 1 : 0;
+  const int g = lane / 4, t = lane % 4;
+  const float scale = round_to<bf16>(swin::QK_SCALE);
+
+  int issued = 0;
+  auto issue_upto = [&](int upto) {
+    for (; issued < upto && issued < units; ++issued) {
+      const int s = issued % STAGES;
+      sm90::mbar_wait(empty + s, ((issued / STAGES) & 1) ^ 1);
+      const int row = (w0 + issued * stride) * N;
+      const uint32_t dst = ring + s * SLOT;
+      sm90::mbar_expect_tx(full + s, UNIT_BYTES);
+      sm90::tma_load_2d(dst, &tm, h * HD, row, full + s);
+      sm90::tma_load_2d(dst + TILE, &tm, c + h * HD, row, full + s);
+      sm90::tma_load_2d(dst + 2 * TILE, &tm, 2 * c + h * HD, row, full + s);
+    }
+  };
+
+  unsigned char* so = smem + OUT + (grp * WARPS + warp) * 1024;   // this warp's output tile
+  for (int u = 0; u < units; ++u) {
+    if (gtid == 0) issue_upto(u + LEAD);
+    __syncwarp();
+    const int w = w0 + u * stride;
+    // the region ids of this thread's keys 8 nt + 2 t + j, four bits each at
+    // position 2 nt + j
+    const int* rr = region != nullptr ? region + static_cast<size_t>(w % nw) * N : nullptr;
+    uint32_t kid[(2 * NT + 7) / 8] = {};
+    if (rr != nullptr) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int p = 2 * nt + j;
+          kid[p / 8] |= static_cast<uint32_t>(__ldg(rr + 8 * nt + 2 * t + j) & 15) << (4 * (p % 8));
+        }
+    }
+    const int s = u % STAGES;
+    sm90::mbar_wait(full + s, (u / STAGES) & 1);
+    const unsigned char* tq = gsm + s * SLOT;
+    const unsigned char* tk = tq + TILE;
+    const unsigned char* tv = tq + 2 * TILE;
+
+#pragma unroll 1
+    for (int i_tile = 0; i_tile < TILES; ++i_tile) {
+      const int rt = warp + WARPS * i_tile;
+      const int row0 = rt * 16 + g;              // this thread's rows: row0, row0 + 8
+      uint32_t qa[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        swin::ldmatrix_x4(qa[ks], reinterpret_cast<const bf16*>(
+                                      tq + sm90::sw64_offset(rt * 16 + lane % 16,
+                                                             16 * ks + 8 * (lane / 16))));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[ks][i] = scale_pair(qa[ks][i], scale);
+      }
+      float sacc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sacc[nt][i] = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          uint32_t b[4];
+          swin::ldmatrix_x4(b, reinterpret_cast<const bf16*>(
+                                   tk + sm90::sw64_offset(kt * 16 + lane % 8 + 8 * (lane / 16),
+                                                          16 * ks + 8 * ((lane / 8) % 2))));
+          swin::mma_bf16(sacc[2 * kt], qa[ks], b[0], b[1]);
+          swin::mma_bf16(sacc[2 * kt + 1], qa[ks], b[2], b[3]);
+        }
+
+      // + bias + mask; row softmax over the four lanes
+      int rid[2] = {0, 0};
+      if (rr != nullptr) {
+        rid[0] = __ldg(rr + row0);
+        rid[1] = __ldg(rr + row0 + 8);
+      }
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const float2 b = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              sb + ((row0 + 8 * hi) * BIAS_LD + 8 * nt + 2 * t) * 2));
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int p = 2 * nt + j;
+            float sc = sacc[nt][2 * hi + j] + (j ? b.y : b.x);
+            const bool differ = rr != nullptr &&
+                static_cast<int>((kid[p / 8] >> (4 * (p % 8))) & 15u) != rid[hi];
+            sc += differ ? swin::NEG : 0.0f;
+            sacc[nt][2 * hi + j] = sc;
+            m[hi] = fmaxf(m[hi], sc);
+          }
+        }
+      float l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 1));
+        m[hi] = fmaxf(m[hi], __shfl_xor_sync(0xffffffffu, m[hi], 2));
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sacc[nt][i] = __expf(sacc[nt][i] - m[i / 2]);
+          l[i / 2] += sacc[nt][i];
+        }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+        l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+        l[hi] = 1.0f / l[hi];
+      }
+
+      // p v: p (rounded to bf16) as the A operand, keys in k-steps of 16
+      float o[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[nt][i] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks) {
+        uint32_t a[4];
+        a[0] = swin::pack_bf16(sacc[2 * ks][0] * l[0], sacc[2 * ks][1] * l[0]);
+        a[1] = swin::pack_bf16(sacc[2 * ks][2] * l[1], sacc[2 * ks][3] * l[1]);
+        a[2] = swin::pack_bf16(sacc[2 * ks + 1][0] * l[0], sacc[2 * ks + 1][1] * l[0]);
+        a[3] = swin::pack_bf16(sacc[2 * ks + 1][2] * l[1], sacc[2 * ks + 1][3] * l[1]);
+#pragma unroll
+        for (int dp = 0; dp < 2; ++dp) {
+          uint32_t b[4];
+          swin::ldmatrix_x4_trans(b, reinterpret_cast<const bf16*>(
+                                         tv + sm90::sw64_offset(16 * ks + lane % 16,
+                                                                16 * dp + 8 * (lane / 16))));
+          swin::mma_bf16(o[2 * dp], a, b[0], b[1]);
+          swin::mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+        }
+      }
+
+      // out: rounded once, staged, then 16 bytes a lane
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi)
+          *reinterpret_cast<uint32_t*>(so + sm90::sw64_offset(g + 8 * hi, 8 * nt + 2 * t)) =
+              swin::pack_bf16(o[nt][2 * hi], o[nt][2 * hi + 1]);
+      __syncwarp();
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {
+        const int r = pass * 8 + lane / 4, row = rt * 16 + r;
+        const uint4 v = *reinterpret_cast<const uint4*>(so + sm90::sw64_offset(r, 8 * (lane % 4)));
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(w) * N + row) * c + h * HD +
+                                  8 * (lane % 4)) = v;
+      }
+      __syncwarp();                                 // so is rewritten by the next tile
+    }
+    if (lane == 0) sm90::mbar_arrive(empty + s);    // this warp is done with the slot
+  }
+}
+
+int launch_n144_bf16(const void* qkv, const void* bias, const int* region, void* out, int bnw,
+                     int heads, int nw, int blocks, int per_head, cudaStream_t stream) {
+  if (blocks <= 0 || per_head <= 0 || blocks != per_head * heads ||
+      reinterpret_cast<uintptr_t>(bias) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm;
+  if (!qkv_map(&tm, qkv, bnw * n144::N, 3 * heads * HD, n144::N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_n144_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, n144::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_attention_n144_bf16_kernel<<<blocks, n144::THREADS, n144::SMEM, stream>>>(
+      tm, static_cast<const bf16*>(bias), region, static_cast<bf16*>(out), bnw, heads, nw,
       per_head);
   return static_cast<int>(cudaGetLastError());
 }
@@ -441,6 +708,75 @@ window_attention_f32_kernel(const float* __restrict__ qkv, const float* __restri
     const int r = e / HD, d = e % HD;
     obase[static_cast<size_t>(r) * c + d] = sq[r][d];
   }
+}
+
+// 12x12 windows in float32, as the 49-token kernel: one block a (window,
+// head), thread i < 144 on query row i. The [144, 144] scores and the head's
+// q, k and v (136 KB) take dynamic shared memory, so one block a
+// multiprocessor; float32 is the precise path, not the fast one.
+namespace n144f {
+constexpr int N = n144::N;
+constexpr int THREADS = 160;                 // 144 rows in whole warps
+constexpr int LD = HD + 1;                   // a q row: thread i reading row i hits bank (i + d) % 32
+constexpr int SK = N * LD * 4;               // offsets in bytes: sq [N][LD], then
+constexpr int SV = SK + N * HD * 4;          // sk [N][HD], sv [N][HD],
+constexpr int SS = SV + N * HD * 4;          // ss [N][N] (bias[h], then the scores),
+constexpr int SREG = SS + N * N * 4;         // sreg [N]
+constexpr int SMEM = SREG + N * 4;
+static_assert(SK % 16 == 0 && SV % 16 == 0 && SMEM <= 232448, "shared memory");
+}  // namespace n144f
+
+__global__ void __launch_bounds__(n144f::THREADS)
+window_attention_n144_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                                 const int* __restrict__ region, float* __restrict__ out,
+                                 int heads, int nw) {
+  constexpr int NW = n144f::N, LD = n144f::LD, T = n144f::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* sq = reinterpret_cast<float*>(smem_f32);
+  float* sk = reinterpret_cast<float*>(smem_f32 + n144f::SK);
+  float* sv = reinterpret_cast<float*>(smem_f32 + n144f::SV);
+  float* ss = reinterpret_cast<float*>(smem_f32 + n144f::SS);
+  int* sreg = reinterpret_cast<int*>(smem_f32 + n144f::SREG);
+
+  const int w = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int c = heads * HD;
+  const float* base = qkv + static_cast<size_t>(w) * NW * 3 * c + h * HD;
+  for (int e = tid; e < NW * HD; e += T) {
+    const int r = e / HD, d = e % HD;
+    const float* row = base + static_cast<size_t>(r) * 3 * c + d;
+    sq[r * LD + d] = row[0] * swin::QK_SCALE;
+    sk[e] = row[c];
+    sv[e] = row[2 * c];
+  }
+  const float* hbias = bias + static_cast<size_t>(h) * NW * NW;
+  for (int e = tid; e < NW * NW; e += T) ss[e] = hbias[e];
+  const bool masked = region != nullptr;
+  if (masked && tid < NW) sreg[tid] = region[static_cast<size_t>(w % nw) * NW + tid];
+  __syncthreads();
+
+  if (tid < NW)
+    swin::attention_row<float, NW>(sq + tid * LD, sk, sv, ss + tid * NW,
+                                   masked ? sreg : nullptr, tid);
+  __syncthreads();
+
+  float* obase = out + static_cast<size_t>(w) * NW * c + h * HD;
+  for (int e = tid; e < NW * HD; e += T) {
+    const int r = e / HD, d = e % HD;
+    obase[static_cast<size_t>(r) * c + d] = sq[r * LD + d];
+  }
+}
+
+int launch_n144_f32(const void* qkv, const void* bias, const int* region, void* out, int bnw,
+                    int heads, int nw, cudaStream_t stream) {
+  if (heads > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(window_attention_n144_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         n144f::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_attention_n144_f32_kernel<<<dim3(bnw, heads), n144f::THREADS, n144f::SMEM, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias), region,
+      static_cast<float*>(out), heads, nw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------ backward, bf16, Hopper -----
@@ -863,6 +1199,34 @@ extern "C" int window_attention(const void* qkv, const void* bias, const void* r
       static_cast<const float*>(qkv), static_cast<const float*>(bias), reg,
       static_cast<float*>(out), heads, nw);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Swin-L's 12x12 windows: qkv [bnw, 144, 3 * heads * 32], bias [heads, 144,
+// 144], region [nw, 144] int32 or null, out [bnw, 144, heads * 32]; qkv,
+// bias and out are bf16 when is_bf16 is nonzero, else float32. blocks and
+// per_head are the bf16 launch's geometry (ops/window_attention.py::
+// wide_geometry); the float32 launch ignores them.
+extern "C" int window_attention_n144(const void* qkv, const void* bias, const void* region,
+                                     void* out, int bnw, int heads, int nw, int is_bf16,
+                                     int blocks, int per_head, void* stream) {
+  if (bnw <= 0 || heads <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* reg = static_cast<const int*>(region);
+  if (is_bf16)
+    return launch_n144_bf16(qkv, bias, reg, out, bnw, heads, nw, blocks, per_head, s);
+  return launch_n144_f32(qkv, bias, reg, out, bnw, heads, nw, s);
+}
+
+// The 144-token kernel's compiled shape into g[0..7), in the order of
+// window_attention_attributes.
+extern "C" int window_attention_n144_attributes(int* g) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, window_attention_n144_bf16_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[7] = {n144::GROUPS, 1, n144::STAGES, n144::THREADS, n144::SMEM, attr.numRegs,
+                    static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 7; ++i) g[i] = v[i];
+  return 0;
 }
 
 // The bf16 kernel's compiled shape into g[0..7): groups a block, blocks a

@@ -1,9 +1,13 @@
-"""Swin-Tiny backbone, eval mode: tokens stay [B, H, W, C] inside.
+"""Swin backbone: tokens stay [B, H, W, C] inside.
 
-4x4 patch embed (dim 96) + 4 stages of shifted-window attention blocks,
-depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 7, MLP ratio 4, patch
-merging between stages, LayerNorm on the three FPN-facing outputs
-(192/384/768 channels at strides 8/16/32). Names and semantics follow
+4x4 patch embed (dim C) + 4 stages of shifted-window attention blocks in
+w x w windows (shifted by w // 2 in every second block), heads of width 32,
+MLP ratio 4, patch merging between stages, LayerNorm on the three
+FPN-facing outputs (2C/4C/8C channels at strides 8/16/32). The default spec
+is Swin-T (C 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), window 7), the
+JAX package's; `config.SWIN_SPECS` also holds Swin-L at window 12 (C 192,
+depths (2, 2, 18, 2), heads (6, 12, 24, 48)), which the JAX package does not
+have. Names and semantics follow
 `yolact_minimal_tpu/models/swin.py`; module names follow the reference
 state_dict (`patch_embed.proj`, `layers.{s}.blocks.{b}.attn.qkv`,
 `layers.{s}.downsample.reduction`, `norm{1,2,3}`), so a strict
@@ -17,10 +21,11 @@ compute the same function from the same parameters:
   kernel, then `ops/swin_mlp.py`;
 - 'whole': `ops/swin_block.py` for the whole block, norm1 to the second
   residual, on the windowed pre-norm rows.
-`SwinTiny` takes the form per stage and `set_block_forms` switches an
-instance. In bfloat16 the forms round at different places ('whole' keeps the
-residual between the halves in float32, the others round it); in float32 they
-differ by summation order only. The window padding sizes, the shifted-window
+`Swin` takes the form per stage and `set_block_forms` switches an
+instance; 'attn_block' and 'whole' need 7x7 windows (kernels 5 and 6 are
+built for them). In bfloat16 the forms round at different places ('whole'
+keeps the residual between the halves in float32, the others round it); in
+float32 they differ by summation order only. The window padding sizes, the shifted-window
 region ids, the padding rowmask and the relative-position index are
 data-independent numpy tables.
 
@@ -31,7 +36,7 @@ and rounds its result, as flax's `LayerNorm(dtype=...)` does.
 Training (the module in train mode) runs every form under autograd, as the
 JAX block does; each kernel's backward recomputes its plain version.
 Stochastic depth (`drop_path`, rates by linspace to `drop_path_rate` over the
-12 blocks) draws one keep bit a sample from the generator the forward is
+blocks) draws one keep bit a sample from the generator the forward is
 given; a block with a nonzero rate runs its MLP half in plain ops, as the
 JAX block does. So in training 'whole' runs kernel 6 only in blocks whose
 rate is 0 and falls back to kernel 3 and the plain MLP elsewhere;
@@ -55,11 +60,11 @@ from yolact_minimal_torch.models import remat as _remat
 from yolact_minimal_torch.ops.attn_block import attn_block
 from yolact_minimal_torch.ops.swin_block import swin_block
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
-from yolact_minimal_torch.ops.window_attention import window_attention
+from yolact_minimal_torch.ops.window_attention import KERNEL_TOKENS, window_attention
 from yolact_minimal_torch.parallel import mesh
-from yolact_minimal_torch.utils.trace import span
+from yolact_minimal_torch.utils.trace import count, span
 
-WINDOW = 7
+WINDOW = 7         # Swin-T's window, the default
 FORMS = ('composed', 'attn_block', 'whole')
 
 
@@ -111,8 +116,8 @@ def _table_on(make, *args, device: torch.device) -> Optional[torch.Tensor]:
     return _cached_table(make, args, device)
 
 
-def _regions_on(hp: int, wp: int, device: torch.device) -> torch.Tensor:
-    return _table_on(shifted_window_regions, hp, wp, device=device)
+def _regions_on(hp: int, wp: int, device: torch.device, window: int) -> torch.Tensor:
+    return _table_on(shifted_window_regions, hp, wp, window, window // 2, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,9 +137,9 @@ def pad_rowmask(h: int, w: int, hp: int, wp: int, shift: int,
     return m.transpose(0, 2, 1, 3).reshape(-1, window * window)
 
 
-def _rowmask_on(h: int, w: int, hp: int, wp: int, shift: int,
-                device: torch.device) -> Optional[torch.Tensor]:
-    return _table_on(pad_rowmask, h, w, hp, wp, shift, device=device)
+def _rowmask_on(h: int, w: int, hp: int, wp: int, shift: int, device: torch.device,
+                window: int) -> Optional[torch.Tensor]:
+    return _table_on(pad_rowmask, h, w, hp, wp, shift, window, device=device)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -223,26 +228,29 @@ class Linear(nn.Linear):
 class WindowAttention(nn.Module):
     """Per-window multi-head attention with relative position bias. `region`
     is the [nW, N] int32 region-id map of the shifted partition (None for an
-    unshifted block)."""
+    unshifted block); N = window * window."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int, window: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.window = window
         self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
         self.proj = Linear(dim, dim, compute_dtype=dtype)
         self.relative_position_bias_table = nn.Parameter(
-            torch.zeros((2 * WINDOW - 1) ** 2, num_heads))
+            torch.zeros((2 * window - 1) ** 2, num_heads))
         self.register_buffer(
             'relative_position_index',
-            torch.from_numpy(relative_position_index().astype(np.int64)), persistent=False)
+            torch.from_numpy(relative_position_index(window).astype(np.int64)),
+            persistent=False)
         self._bias = _Derived()
 
     def bias(self) -> torch.Tensor:
         """[heads, N, N] in the compute dtype: gathered once per table for
         calls that need no gradient, afresh for calls that do."""
         table = self.relative_position_bias_table
-        n = WINDOW * WINDOW
+        n = self.window * self.window
 
         def make(t):
             b = t[self.relative_position_index.reshape(-1)]
@@ -277,41 +285,46 @@ class SwinBlock(nn.Module):
     form (module docstring); the parameters are the same in all three.
     `drop_path_rate` is the block's stochastic depth in training; at a
     nonzero rate a `fused_whole` block trains through the two halves, as the
-    JAX block does."""
+    JAX block does. `window` is the side of a window."""
 
-    def __init__(self, dim: int, num_heads: int, shift: int,
+    def __init__(self, dim: int, num_heads: int, shift: int, window: int,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
                  fused_whole: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         self.shift = shift
+        self.window = window
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
         self.fused_attn_block = fused_attn_block
         self.fused_whole = fused_whole
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, dtype)
+        self.attn = WindowAttention(dim, num_heads, window, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, dim * 4, dtype)
 
     def _to_windows(self, x):
         """Pad to a multiple of the window, roll by the shift, partition.
-        Returns the windows, the padded size and the region ids (or None)."""
-        _, h, w, _ = x.shape
-        pad_b = (WINDOW - h % WINDOW) % WINDOW
-        pad_r = (WINDOW - w % WINDOW) % WINDOW
+        Returns the windows, the padded size and the region ids (or None).
+        Counts the rows it is given and the rows of its windows."""
+        b, h, w, _ = x.shape
+        win = self.window
+        pad_b = (win - h % win) % win
+        pad_r = (win - w % win) % win
         hp, wp = h + pad_b, w + pad_r
+        count('swin.rows', b * h * w)
+        count('swin.window_rows', b * hp * wp)
         region = None
         with span('yolact.swin.glue'):
             if pad_b or pad_r:
                 x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
             if self.shift > 0:
                 x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-                region = _regions_on(hp, wp, x.device)
-            return window_partition(x, WINDOW), hp, wp, region
+                region = _regions_on(hp, wp, x.device, win)
+            return window_partition(x, win), hp, wp, region
 
     def _from_windows(self, windows, hp, wp, h, w):
         with span('yolact.swin.glue'):
-            x = window_reverse(windows, WINDOW, hp, wp)
+            x = window_reverse(windows, self.window, hp, wp)
             if self.shift > 0:
                 x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
             return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
@@ -342,7 +355,8 @@ class SwinBlock(nn.Module):
         _, h, w, _ = x.shape
         windows, hp, wp, region = self._to_windows(x.to(self.dtype))
         attn, fc1, fc2 = self.attn, self.mlp.fc1, self.mlp.fc2
-        y = swin_block(windows.contiguous(), _rowmask_on(h, w, hp, wp, self.shift, x.device),
+        y = swin_block(windows.contiguous(),
+                       _rowmask_on(h, w, hp, wp, self.shift, x.device, self.window),
                        self.norm1.weight, self.norm1.bias, attn.qkv.cast()[0], attn.qkv.bias,
                        attn.bias(), region, attn.proj.cast()[0], attn.proj.bias,
                        self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
@@ -371,18 +385,20 @@ class PatchMerging(nn.Module):
 
 
 class SwinStage(nn.Module):
-    """`depth` blocks, alternating unshifted and shifted, then the optional
-    patch merging; returns (the blocks' output, the next stage's input)."""
+    """`depth` blocks, alternating unshifted and shifted by window // 2, then
+    the optional patch merging; returns (the blocks' output, the next
+    stage's input)."""
 
-    def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool,
+    def __init__(self, dim: int, depth: int, num_heads: int, downsample: bool, window: int,
                  dtype: torch.dtype = torch.float32, fused_attn_block: bool = False,
                  fused_whole: bool = False, drop_path_rates: Sequence[float] = (),
                  remat: bool = False):
         super().__init__()
         self.remat = remat
+        self.dim, self.window = dim, window
         rates = list(drop_path_rates) or [0.0] * depth
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, 0 if i % 2 == 0 else WINDOW // 2, dtype,
+            SwinBlock(dim, num_heads, 0 if i % 2 == 0 else window // 2, window, dtype,
                       fused_attn_block=fused_attn_block, fused_whole=fused_whole,
                       drop_path_rate=rates[i])
             for i in range(depth))
@@ -402,20 +418,20 @@ class PatchEmbed(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
 
-class SwinTiny(nn.Module):
-    """`forward(x [B, H, W, 3])` returns 4 [B, h, w, C] feature maps (96,
-    192, 384, 768 channels at strides 4/8/16/32) in the compute dtype;
-    outputs 1-3 are LayerNormed. `block_forms` is one of `FORMS` for every
-    stage, or one per stage. `drop_path_rate` is the last block's stochastic
-    depth in training; block i of all 12 gets linspace(0, rate, 12)[i].
-    `remat`: each block is recomputed in the backward when training with
-    grad enabled."""
+class Swin(nn.Module):
+    """`forward(x [B, H, W, 3])` returns 4 [B, h, w, C] feature maps (C, 2C,
+    4C, 8C channels at strides 4/8/16/32; 96 to 768 for the default Swin-T)
+    in the compute dtype; outputs 1-3 are LayerNormed. `block_forms` is one
+    of `FORMS` for every stage, or one per stage. `drop_path_rate` is the
+    last block's stochastic depth in training; block i of all n gets
+    linspace(0, rate, n)[i]. `window` is the side of a window. `remat`: each
+    block is recomputed in the backward when training with grad enabled."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  dtype: torch.dtype = torch.float32,
                  block_forms: Union[str, Sequence[str]] = 'composed',
-                 drop_path_rate: float = 0.2, remat: bool = False):
+                 drop_path_rate: float = 0.2, remat: bool = False, window: int = WINDOW):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(embed_dim)
@@ -423,7 +439,7 @@ class SwinTiny(nn.Module):
         starts = np.cumsum((0,) + tuple(depths)).tolist()
         self.layers = nn.ModuleList(
             SwinStage(embed_dim * 2 ** i, depth, num_heads[i],
-                      downsample=i < len(depths) - 1, dtype=dtype,
+                      downsample=i < len(depths) - 1, window=window, dtype=dtype,
                       drop_path_rates=rates[starts[i]:starts[i] + depth], remat=remat)
             for i, depth in enumerate(depths))
         for i in (1, 2, 3):
@@ -432,11 +448,18 @@ class SwinTiny(nn.Module):
 
     def set_block_forms(self, forms: Union[str, Sequence[str]]) -> None:
         """Switch every block of stage i to `forms[i]` (or all to `forms`);
-        the parameters stay as they are."""
+        the parameters stay as they are. 'attn_block' and 'whole' need the
+        7x7 windows kernels 5 and 6 are built for (their wrappers raise on the
+        card for C outside KERNEL_WIDTHS; their plain versions take any C)."""
         forms = [forms] * len(self.layers) if isinstance(forms, str) else list(forms)
         if len(forms) != len(self.layers) or any(f not in FORMS for f in forms):
             raise ValueError(f'block forms must be one of {FORMS}, or one per stage for '
                              f'{len(self.layers)} stages, got {forms}')
+        for i, (stage, form) in enumerate(zip(self.layers, forms)):
+            if form != 'composed' and stage.window ** 2 != KERNEL_TOKENS:
+                raise ValueError(f'block form {form!r} runs kernels built for '
+                                 f'{KERNEL_TOKENS}-token windows; stage {i} has '
+                                 f'{stage.window}x{stage.window} windows: use \'composed\'')
         for stage, form in zip(self.layers, forms):
             for block in stage.blocks:
                 block.fused_attn_block = form == 'attn_block'
@@ -466,3 +489,4 @@ class SwinTiny(nn.Module):
                 out = _layer_norm(out, getattr(self, f'norm{i}'), self.dtype)
             outs.append(out)
         return tuple(outs)
+

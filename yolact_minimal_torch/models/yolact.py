@@ -16,9 +16,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolact_minimal_torch.config import Config
+from yolact_minimal_torch.config import SWIN_SPECS, Config
 from yolact_minimal_torch.models.resnet import ResNet
-from yolact_minimal_torch.models.swin import SwinTiny, WindowAttention
+from yolact_minimal_torch.models.swin import Swin, WindowAttention
 from yolact_minimal_torch.ops.resize import resize_bilinear
 
 COEF_DIM = 32
@@ -114,10 +114,12 @@ class Yolact(nn.Module):
         if cfg.backbone in BACKBONE_LAYERS:
             self.backbone = ResNet(BACKBONE_LAYERS[cfg.backbone], remat=cfg.remat)
             self.fpn = FPN((512, 1024, 2048))
-        elif cfg.backbone == 'swin_tiny':
+        elif cfg.is_swin:
             # The swin modules take their compute dtype at construction.
-            self.backbone = SwinTiny(dtype=getattr(torch, cfg.compute_dtype), remat=cfg.remat)
-            self.fpn = FPN((192, 384, 768))
+            spec = SWIN_SPECS[cfg.backbone]
+            self.backbone = Swin(**spec, dtype=getattr(torch, cfg.compute_dtype),
+                                 remat=cfg.remat)
+            self.fpn = FPN(tuple(spec['embed_dim'] * 2 ** i for i in (1, 2, 3)))
         else:
             raise ValueError(f'Unknown backbone {cfg.backbone!r}')
         self.proto_net = ProtoNet()
@@ -153,7 +155,7 @@ class Yolact(nn.Module):
         # as flax's Conv/BatchNorm(dtype=bf16) do in the JAX package.
         bf16 = self.cfg.compute_dtype == 'bfloat16'
         with torch.autocast(img.device.type, dtype=torch.bfloat16, enabled=bf16):
-            if isinstance(self.backbone, SwinTiny):
+            if isinstance(self.backbone, Swin):
                 c3, c4, c5 = (t.permute(0, 3, 1, 2)
                               for t in self.backbone(img, generator)[1:])
             else:

@@ -4,11 +4,14 @@
 tensors on the card and runs the plain PyTorch version, `mlp_block_plain`,
 for tensors on the CPU, through the registered operator
 `yolact_torch::mlp_block`, so that `torch.export` records the call and an
-exported program launches the kernel. It counts its kernel launches in
-`mlp_block.launches`. The operator's backward (`register_autograd`)
-recomputes the plain version from the saved inputs, as the JAX package's
-custom_vjp does through its XLA form; gradients go to x, the LayerNorm scale
-and bias, k1, b1, k2 and b2.
+exported program launches the kernel. The kernel is built for the widths
+of `KERNEL_WIDTHS` and for `WIDE_WIDTH` (Swin-L's stage 3), where its bf16
+form is three launches with the hidden activations in device memory. It
+counts its calls on the card in `mlp_block.launches`, once a call at every
+width. The operator's backward (`register_autograd`) recomputes the plain
+version from the saved inputs, as the JAX package's custom_vjp does through
+its XLA form; gradients go to x, the LayerNorm scale and bias, k1, b1, k2
+and b2.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: LayerNorm in float32 (eps 1e-5), rounded to the compute
@@ -27,8 +30,12 @@ import torch.nn.functional as F
 from yolact_minimal_torch.ops import _build
 
 LN_EPS = 1e-5
-# Row widths the kernel is compiled for (swin_tiny's four stages).
+# Row widths the fused kernel is compiled for (swin_tiny's four stages;
+# kernels 5 and 6 take the same).
 KERNEL_WIDTHS = (96, 192, 384, 768)
+# swin_large's stage 3 (its stages 0-2 are swin_tiny's stages 1-3): in bf16,
+# LayerNorm, fc1 and fc2 as three launches.
+WIDE_WIDTH = 1536
 
 
 def mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
@@ -85,21 +92,29 @@ def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
     if x.device.type == 'cpu':
         return mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2)
     rows, c = x.shape
-    if c not in KERNEL_WIDTHS:
-        raise ValueError(f'mlp_block: the kernel takes C in {KERNEL_WIDTHS}, got {c}')
+    if c not in KERNEL_WIDTHS and c != WIDE_WIDTH:
+        raise ValueError(f'mlp_block: the kernel takes C in {KERNEL_WIDTHS + (WIDE_WIDTH,)}, '
+                         f'got {c}')
     k1, k2 = k1.to(x.dtype), k2.to(x.dtype)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     lib = _build.load('swin_mlp')
-    fn = lib.swin_mlp
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptrs = [t.data_ptr() for t in (x, ln_scale, ln_bias, k1, b1, k2, b2, out)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch(fn, x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-                      k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
-                      out.data_ptr(), rows, c, int(x.dtype == torch.bfloat16), stream)
+        if c == WIDE_WIDTH and x.dtype == torch.bfloat16:
+            # room for LN(x) and the hidden activations, from PyTorch's cache
+            xn, h = torch.empty_like(x), x.new_empty((rows, 4 * c))
+            fn = lib.swin_mlp_wide
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+            args = (*ptrs, xn.data_ptr(), h.data_ptr(), rows)
+        else:
+            fn = lib.swin_mlp
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            args = (*ptrs, rows, c, int(x.dtype == torch.bfloat16))
+        fn.restype = ctypes.c_int
+        _build.launch(fn, *args, stream)
     mlp_block.launches += 1
     return out
 
@@ -145,7 +160,8 @@ GEOMETRY_KEYS = ('rows_per_tile', 'cluster', 'blocks', 'tiles', 'stages', 'smem_
 def kernel_geometry(c: int, rows: int) -> dict:
     """The bf16 kernel's launch geometry for `rows` rows of width `c` on the
     current card, with the registers and local (spill) bytes a thread that
-    the compiled kernel reports."""
+    the compiled kernel reports. At WIDE_WIDTH, the fc1 launch's: a block
+    for each row tile and 128 hidden columns."""
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
     fn = _build.load('swin_mlp').swin_mlp_geometry
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -6,15 +6,19 @@ softmax(q k^T * hd^-0.5 + rel_bias[h] + (-100 where region ids differ)) v.
 PyTorch version, `window_attention_plain`, for tensors on the CPU, through
 the registered operator `yolact_torch::window_attention`, so that
 `torch.export` records the call and an exported program launches the kernel.
-It counts its kernel launches in `window_attention.launches`. The operator's
-backward (`register_autograd`) keeps only qkv and the bias, so no [*, N, N]
-residual is kept, and goes through `window_attention_backward`: for bf16
-tensors on the card, the hand-written backward kernel (counted in
+7x7 windows (49 tokens) and Swin-L's 12x12 windows (144 tokens) each have
+a bf16 and a float32 kernel. It counts its kernel launches in
+`window_attention.launches`. The operator's backward (`register_autograd`)
+keeps only qkv and the bias, so no [*, N, N] residual is kept, and goes
+through `window_attention_backward`: for bf16 tensors on the card, the
+hand-written backward kernel (counted in
 `window_attention.backward_launches`), which recomputes each window's
 softmax in its tile; for float32 on the card and for the CPU, the plain
 version recomputed under autograd (`window_attention_backward_plain`), as
-the JAX package's custom_vjp does through its XLA form. The region ids get
-no gradient.
+the JAX package's custom_vjp does through its XLA form. The backward kernel
+is built for 49-token windows only, so bf16 training of a 12x12-window
+backbone (swin_large_coco) is refused on the card. The region ids get no
+gradient.
 
 Rounding places, shared by the plain version, the kernel and the JAX
 package's kernel: `q * scale` is rounded to the compute dtype (the scale
@@ -34,8 +38,10 @@ import torch
 from yolact_minimal_torch.ops import _build
 
 NEG = -100.0       # additive fill for pairs in different regions (not -inf)
-# What the kernel is compiled for: tokens per window and head width.
+# What the kernels are compiled for: tokens per window and head width; the
+# forward also for WIDE_TOKENS (12x12 windows).
 KERNEL_TOKENS = 49
+WIDE_TOKENS = 144
 KERNEL_HEAD_DIM = 32
 # The bf16 kernel's blocks: groups of four warps a block, blocks resident on
 # one multiprocessor (csrc/window_attention.cu reports the values it was
@@ -45,6 +51,9 @@ BLOCKS_PER_SM = 2
 # The bf16 backward kernel's: one group a block, three blocks a
 # multiprocessor (`kernel_attributes(backward=True)`).
 BACKWARD_BLOCKS_PER_SM = 3
+# The 144-token kernel's: groups of three warps a block, all on one head,
+# one block a multiprocessor (`kernel_attributes(wide=True)`).
+WIDE_GROUPS_PER_BLOCK = 3
 
 
 @dataclass(frozen=True)
@@ -84,6 +93,33 @@ def kernel_geometry(bnw: int, heads: int, sms: int, per_block: int = GROUPS_PER_
     groups = per_head * heads
     return Geometry(bnw=bnw, heads=heads, blocks=-(-groups // per_block),
                     groups=groups, per_head=per_head, per_block=per_block)
+
+
+@dataclass(frozen=True)
+class WideGeometry:
+    """A 144-token launch: `blocks` = per_head * heads blocks of `per_block`
+    groups. Block b takes head b % heads; its group i walks windows
+    (b // heads) * per_block + i, + per_head * per_block, ... below bnw."""
+    bnw: int
+    heads: int
+    blocks: int
+    per_head: int
+    per_block: int = WIDE_GROUPS_PER_BLOCK
+
+    def windows(self, block: int, group: int) -> List[int]:
+        start = (block // self.heads) * self.per_block + group
+        return list(range(start, self.bnw, self.per_head * self.per_block))
+
+
+@lru_cache(maxsize=64)
+def wide_geometry(bnw: int, heads: int, sms: int) -> WideGeometry:
+    """The 144-token kernel's launch for bnw windows of `heads` heads on a
+    card of `sms` multiprocessors: one block a multiprocessor, the same
+    number of blocks for every head, and no block without a window."""
+    if bnw <= 0 or heads <= 0 or sms <= 0:
+        raise ValueError(f'wide_geometry: bnw={bnw}, heads={heads}, sms={sms}')
+    per_head = max(1, min(-(-bnw // WIDE_GROUPS_PER_BLOCK), sms // heads))
+    return WideGeometry(bnw=bnw, heads=heads, blocks=per_head * heads, per_head=per_head)
 
 
 def backward_geometry(bnw: int, heads: int, sms: int) -> Geometry:
@@ -160,32 +196,37 @@ def window_attention(qkv, bias, region: Optional[torch.Tensor],
                          device_types=('cpu', 'cuda'))
 def _window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, region: Optional[torch.Tensor],
                          heads: int) -> torch.Tensor:
-    """The plain version on the CPU, the kernel on the card."""
+    """The plain version on the CPU, a kernel on the card."""
     if qkv.device.type == 'cpu':
         return window_attention_plain(qkv, bias, region, heads)
     bnw, n, c3 = qkv.shape
     c = c3 // 3
-    if n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM:
-        raise ValueError(f'window_attention: the kernel takes {KERNEL_TOKENS} tokens and '
-                         f'head width {KERNEL_HEAD_DIM}, got {n} and {c // heads}')
+    wide = n == WIDE_TOKENS and c // heads == KERNEL_HEAD_DIM
+    if not wide and (n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM):
+        raise ValueError(f'window_attention: the kernel takes {KERNEL_TOKENS} or '
+                         f'{WIDE_TOKENS} tokens and head width {KERNEL_HEAD_DIM}, got {n} and '
+                         f'{c // heads}')
     if heads > 65535:
         raise ValueError(f'window_attention: grid too large (heads={heads})')
     out = torch.empty((bnw, n, c), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
     index = qkv.device.index if qkv.device.index is not None else torch.cuda.current_device()
-    geo = kernel_geometry(bnw, heads, _sm_count(index))
     lib = _build.load('window_attention')
-    fn = lib.window_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    is_bf16 = int(qkv.dtype == torch.bfloat16)
+    if wide:
+        geo = wide_geometry(bnw, heads, _sm_count(index))
+        fn, launch = lib.window_attention_n144, (is_bf16, geo.blocks, geo.per_head)
+    else:
+        geo = kernel_geometry(bnw, heads, _sm_count(index))
+        fn, launch = lib.window_attention, (is_bf16, geo.blocks, geo.groups, geo.per_head)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (3 + len(launch)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
                       None if region is None else region.data_ptr(), out.data_ptr(),
-                      bnw, heads, 0 if region is None else region.shape[0],
-                      int(qkv.dtype == torch.bfloat16), geo.blocks, geo.groups, geo.per_head,
-                      stream)
+                      bnw, heads, 0 if region is None else region.shape[0], *launch, stream)
     window_attention.launches += 1
     return out
 
@@ -231,7 +272,8 @@ def window_attention_backward(qkv, bias, region: Optional[torch.Tensor], heads: 
     the card launch the backward kernel (csrc/window_attention.cu; two
     launches, counted once in `window_attention.backward_launches`); float32
     on the card, which no training path runs at speed, and the CPU take
-    window_attention_backward_plain."""
+    window_attention_backward_plain. bf16 144-token windows on the card raise:
+    the backward kernel is built for 49 tokens."""
     _check(qkv, bias, region, heads)
     bnw, n, c3 = qkv.shape
     if grad.shape != (bnw, n, c3 // 3) or grad.dtype != qkv.dtype or \
@@ -242,6 +284,10 @@ def window_attention_backward(qkv, bias, region: Optional[torch.Tensor], heads: 
     if qkv.device.type == 'cpu' or qkv.dtype != torch.bfloat16:
         return window_attention_backward_plain(qkv, bias, region, heads, grad)
     c = c3 // 3
+    if n == WIDE_TOKENS:
+        raise ValueError('window_attention_backward: no backward kernel for 144-token '
+                         'windows yet, so bf16 training of a 12x12-window swin backbone '
+                         '(swin_large_coco) does not run on the card')
     if n != KERNEL_TOKENS or c // heads != KERNEL_HEAD_DIM:
         raise ValueError(f'window_attention_backward: the kernel takes {KERNEL_TOKENS} tokens '
                          f'and head width {KERNEL_HEAD_DIM}, got {n} and {c // heads}')
@@ -273,15 +319,15 @@ ATTRIBUTE_KEYS = ('groups_per_block', 'blocks_per_sm', 'stages', 'threads', 'sme
                   'registers', 'spill_bytes')
 
 
-def kernel_attributes(backward: bool = False) -> dict:
+def kernel_attributes(backward: bool = False, wide: bool = False) -> dict:
     """The compiled bf16 kernel's shape (the backward kernel's with
-    `backward`): groups a block, blocks a multiprocessor, ring slots a group,
-    threads and dynamic shared memory bytes a block, and the registers and
-    local (spill) bytes a thread."""
+    `backward`, the 144-token kernel's with `wide`): groups a block, blocks a
+    multiprocessor, ring slots a group, threads and dynamic shared memory
+    bytes a block, and the registers and local (spill) bytes a thread."""
     out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
     lib = _build.load('window_attention')
     fn = lib.window_attention_backward_attributes if backward else \
-        lib.window_attention_attributes
+        lib.window_attention_n144_attributes if wide else lib.window_attention_attributes
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.launch(fn, ctypes.addressof(out))

@@ -104,7 +104,7 @@ def create_train_state(cfg: Config, device: Union[str, torch.device] = 'cuda', s
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if backbone is not None:
         model.load_state_dict(graft_backbone(model.state_dict(), backbone,
-                                             strict=cfg.backbone != 'swin_tiny'))
+                                             strict=not cfg.is_swin))
     if state_dict is not None:
         missing, unexpected = model.load_state_dict(state_dict, strict=False)
         missing = [k for k in missing if not k.startswith('semantic_seg_conv.')]

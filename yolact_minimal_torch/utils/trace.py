@@ -6,21 +6,21 @@ activity and on its clock; otherwise it is a shared no-op context, since a
 range costs host time (~15 us) even with no profiler to read it. Names are
 `yolact.<path>.<layer>`.
 
-`count(name, tensor)` keeps a reference to a tensor the call computes
-anyway (a mask, a count), and only while a profiler records: it launches
-nothing and waits for nothing. `counts()` sums what was kept, by name,
-synchronising then; `reset()` forgets it. A kept tensor must not be written
-in place afterwards.
+`count(name, value)` keeps a reference to a tensor the call computes
+anyway (a mask, a count), or a host integer (a size), and only while a
+profiler records: it launches nothing and waits for nothing. `counts()`
+sums what was kept, by name, synchronising then; `reset()` forgets it. A
+kept tensor must not be written in place afterwards.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import torch
 
 _OFF = contextlib.nullcontext()
-_kept: Dict[str, List[torch.Tensor]] = {}
+_kept: Dict[str, List[Union[torch.Tensor, int]]] = {}
 
 
 def _recording() -> bool:
@@ -31,15 +31,16 @@ def span(name: str):
     return torch.profiler.record_function(name) if _recording() else _OFF
 
 
-def count(name: str, tensor: torch.Tensor) -> None:
+def count(name: str, value: Union[torch.Tensor, int]) -> None:
     if _recording():
-        _kept.setdefault(name, []).append(tensor)
+        _kept.setdefault(name, []).append(value)
 
 
 def counts() -> Dict[str, int]:
-    """The sum of every tensor kept under each name, as host integers."""
+    """The sum of every value kept under each name, as host integers."""
     with torch.no_grad():
-        return {name: sum(int(t.sum()) for t in kept) for name, kept in _kept.items()}
+        return {name: sum(int(t.sum()) if torch.is_tensor(t) else int(t) for t in kept)
+                for name, kept in _kept.items()}
 
 
 def reset() -> None:
