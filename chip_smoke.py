@@ -152,7 +152,7 @@ Kernels 3-6 also carry `train` (their launches a
 'composed' and a 'mixed' training step and, per stage, forward and backward
 ms under autograd), `backward_ms` and `backward_device_ms` (stage 0) and
 `grad_rel_err` (the worst stage). The rows window_attention_n144 and
-swin_mlp_wide are phase 7b's (stage 0 and C = 1536 at the top level,
+swin_mlp_wide are phase 7b's (stage 0 and C = 768 at the top level,
 `path_device_ms` and `path_bound_ms` over one bf16 call, `launches` of that
 call). `launches_by_path` has the four training
 paths too (res50_coco/train_float32, res50_coco/train_bfloat16,
@@ -774,16 +774,48 @@ def check_window_attention(dev):
                 per_stage=per_stage)
 
 
+# Kernel 4's bf16 device ms a call before its wide form took these (C, rows):
+# the fused kernel (the three-launch form of 128 x 128 tiles at C = 1536),
+# from probes/h100_swin_mlp/variants.py --parent on the commit before the
+# wide form (PERF.md §6).
+FUSED_DEVICE_MS = {(384, 73984): 0.6447, (384, 18496): 0.2170, (768, 18496): 1.1325,
+                   (768, 4624): 0.3639, (1536, 4624): 0.4035}
+
+
+def _mlp_geometries(c, rows, sms):
+    """Kernel 4's bf16 launch geometry for `rows` rows of width c, by
+    launch (the fused kernel, or the wide form's fc1 and fc2), printed."""
+    from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_form
+    import torch
+    launches = ('fc1', 'fc2') if mlp_form(c, torch.bfloat16) == 'wide' else ('fused',)
+    geos = {}
+    for launch in launches:
+        geo = kernel_geometry(c, rows, launch)
+        geo['waves'] = geo['tiles'] / geo['blocks']
+        geo['rounds'] = -(-geo['tiles'] // geo['blocks'])
+        geo['sms'] = sms
+        print(f'  {launch} geometry: {geo["rows_per_tile"]} x {geo["cols_per_tile"]} tiles '
+              f'({geo["col_tiles"]} across), cluster {geo["cluster"]}, {geo["blocks"]} blocks of '
+              f'{geo["threads"]} threads for {geo["tiles"]} tiles on {sms} SMs '
+              f'({geo["waves"]:.2f} tiles a block, {geo["rounds"]} rounds), {geo["stages"]} ring '
+              f'stages, {geo["smem_bytes"]} B shared memory, {geo["registers"]} registers, '
+              f'{geo["spill_bytes"]} B local (spill) a thread')
+        geos[launch] = geo
+    return geos
+
+
 def check_swin_mlp(dev):
     """Kernel 4 at the four stage shapes of swin_tiny 544/b16 (row counts that
     no tile divides), bf16 and float32, against the plain version; two bf16
     launches on the same input must give the same bits. Timed in bf16, once
     in float32 for the record, and beside the composition yardstick: bf16
     F.layer_norm (float32 statistics) -> F.linear -> F.gelu -> F.linear -> + x,
-    which the port never calls. Prints the bf16 launch geometry."""
+    which the port never calls, and where the wide form runs, beside the
+    fused kernel's device time before it (FUSED_DEVICE_MS). Prints the bf16
+    form and each launch's geometry."""
     import torch
     import torch.nn.functional as F
-    from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
+    from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain, mlp_form
     g = torch.Generator(device=dev).manual_seed(4)
     rand = lambda *shape: torch.randn(*shape, device=dev, generator=g)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -825,28 +857,24 @@ def check_swin_mlp(dev):
         _, comp_rel = _rel_err(composition(), mlp_block_plain(*args))
         _check(comp_rel < 5e-2, f'the composition yardstick computes something else ({comp_rel})')
         composition_ms = _time_ms(composition)
-        geo = kernel_geometry(c, rows)
-        geo['waves'] = geo['tiles'] / geo['blocks']
-        geo['rounds'] = -(-geo['tiles'] // geo['blocks'])
-        geo['sms'] = sms
-        # bytes: x and all parameters read once, y written once; operations:
-        # the two products (LayerNorm, gelu and the adds are a few per element)
-        n_bytes = 2 * x.numel() * 2 + 2 * 4 * c * c * 2 + (2 * c + 4 * c + c) * 4
-        bound, by = _bound_ms(n_bytes, 2 * rows * c * 4 * c * 2, BF16_PEAK)
-        print(f'kernel swin_mlp stage {stage} x [{rows}, {c}] bf16: {ms:.4f} ms '
-              f'({2 * rows * c * 4 * c * 2 / ms / 1e9:.1f} TFLOP/s), composition yardstick {composition_ms:.4f} ms, plain '
+        device_ms = _device_ms(lambda: mlp_block(*args))
+        form = mlp_form(c, torch.bfloat16)
+        geos = _mlp_geometries(c, rows, sms)
+        bound, by = _mlp_bound(rows, c)
+        before = FUSED_DEVICE_MS.get((c, rows))
+        print(f'kernel swin_mlp stage {stage} x [{rows}, {c}] bf16, {form} form: {ms:.4f} ms '
+              f'(device {device_ms:.4f}, {16 * rows * c * c / device_ms / 1e9:.1f} TFLOP/s, '
+              f'{bound / device_ms:.1%} of the bound'
+              + (f'; the fused kernel before it: device {before:.4f}' if before else '') +
+              f'), composition yardstick {composition_ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, float32 kernel {f32_ms:.4f} ms, bound {bound:.5f} ms ({by}); '
               f'|kernel - plain| / max |plain|: bf16 {worst[torch.bfloat16][1]:.3g} (<= '
               f'{SWIN_BF16_REL_TOL:.3g}), float32 {worst[torch.float32][1]:.3g} (<= '
               f'{SWIN_F32_REL_TOL:.3g}); two launches bit-equal')
-        print(f'  geometry: {geo["rows_per_tile"]} rows a tile, cluster {geo["cluster"]}, '
-              f'{geo["blocks"]} blocks of {geo["threads"]} threads for {geo["tiles"]} tiles on '
-              f'{sms} SMs ({geo["waves"]:.2f} tiles a block, {geo["rounds"]} rounds), '
-              f'{geo["stages"]} ring stages, {geo["smem_bytes"]} B shared memory, '
-              f'{geo["registers"]} registers, {geo["spill_bytes"]} B local (spill) a thread')
-        per_stage.append(dict(shape=[rows, c], ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
+        per_stage.append(dict(shape=[rows, c], form=form, ms=ms, device_ms=device_ms,
+                              fused_device_ms_before=before, plain_ms=plain_ms, f32_ms=f32_ms,
                               composition_ms=composition_ms,
-                              bound_ms=bound, bound_by=by, library_ms=None, geometry=geo,
+                              bound_ms=bound, bound_by=by, library_ms=None, geometry=geos,
                               max_abs_err=worst[torch.bfloat16][0],
                               max_abs_err_f32=worst[torch.float32][0]))
         del x, args, params, bf
@@ -1416,9 +1444,12 @@ def phase_swin_large(dev):
     """swin_large_coco (12x12 windows, C 192-1536) on the card. Kernel 3's
     144-token kernels at the four stage shapes of 544/b16, bf16 and float32,
     shifted and unshifted, against the plain version; kernel 4 on the same
-    stages' rows (C = 192 / 384 / 768 fused, 1536 in three launches) against
-    its plain version; each bf16 form twice bit-equal, timed with CUDA
-    events and in device time beside its bound. Kernel 3's bf16 backward at
+    stages' rows (C = 192 fused, 384 / 768 / 1536 in its wide form's three
+    launches) against its plain version; each bf16 form twice bit-equal,
+    timed with CUDA events and in device time (the wide form's by launch)
+    beside its bound, the fused kernel's device time before the wide form
+    (FUSED_DEVICE_MS) and the bf16 composition yardstick, with each launch's
+    geometry. Kernel 3's bf16 backward at
     144 tokens must refuse. Then one seeded swin_large_coco Detector at
     batch 16 in bf16 and at batch 2 in float32: detect_fixed with the launch
     counters set to 0 just before (24 of kernel 3 and 24 of kernel 4, none of
@@ -1428,7 +1459,8 @@ def phase_swin_large(dev):
     import torch
     from yolact_minimal_torch.config import get_config
     from yolact_minimal_torch.models.swin import shifted_window_regions
-    from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
+    import torch.nn.functional as F
+    from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain, mlp_form
     from yolact_minimal_torch.ops.window_attention import (kernel_attributes,
                                                            window_attention,
                                                            window_attention_backward,
@@ -1504,18 +1536,30 @@ def phase_swin_large(dev):
         ms = _time_ms(lambda: mlp_block(*args))
         device_ms = _device_ms(lambda: mlp_block(*args))
         plain_ms = _time_ms(lambda: mlp_block_plain(*args), warmup=1, iters=5)
+        bf = [t.bfloat16() for t in params]
+        composition_ms = _time_ms(lambda: x + F.linear(F.gelu(F.linear(
+            F.layer_norm(x, (c,), bf[0], bf[1], 1e-5), bf[2], bf[3])), bf[4], bf[5]))
         bound, by = _mlp_bound(rows, c)
-        geo = kernel_geometry(c, rows)
-        print(f'kernel swin_mlp C = {c} x [{rows}, {c}] bf16: {ms:.4f} ms (device '
-              f'{device_ms:.4f}, {16 * rows * c * c / device_ms / 1e9:.1f} TFLOP/s), plain '
-              f'{plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), {bound / device_ms:.1%} of it; '
+        form = mlp_form(c, torch.bfloat16)
+        by_launch = {k: v['device_ms'] for k, v in _kernel_launches(lambda: mlp_block(*args), {
+            'ln': r'mlp_wide_ln_kernel', 'fc1': r'mlp_wide_gemm_kernel<\d+,\s*false>',
+            'fc2': r'mlp_wide_gemm_kernel<\d+,\s*true>', 'fused': r'mlp_bf16_sm90_kernel'}).items()
+            if v['launches']}
+        before = FUSED_DEVICE_MS.get((c, rows))
+        print(f'kernel swin_mlp C = {c} x [{rows}, {c}] bf16, {form} form: {ms:.4f} ms (device '
+              f'{device_ms:.4f}, {16 * rows * c * c / device_ms / 1e9:.1f} TFLOP/s; by launch '
+              f'{by_launch}), bound {bound:.5f} ms ({by}), {bound / device_ms:.1%} of it'
+              + (f'; the fused kernel before it: device {before:.4f} ms' if before else '') +
+              f'; composition yardstick {composition_ms:.4f} ms, plain {plain_ms:.4f} ms; '
               f'|kernel - plain| / max |plain|: bf16 {worst[torch.bfloat16][1]:.3g}, float32 '
-              f'{worst[torch.float32][1]:.3g}; geometry {geo}')
-        mlp.append(dict(shape=[rows, c], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, geometry=geo,
-                        max_abs_err=worst[torch.bfloat16][0],
+              f'{worst[torch.float32][1]:.3g}')
+        geos = _mlp_geometries(c, rows, torch.cuda.get_device_properties(dev).multi_processor_count)
+        mlp.append(dict(shape=[rows, c], form=form, ms=ms, device_ms=device_ms,
+                        device_ms_by_launch=by_launch, fused_device_ms_before=before,
+                        plain_ms=plain_ms, composition_ms=composition_ms, bound_ms=bound,
+                        bound_by=by, geometry=geos, max_abs_err=worst[torch.bfloat16][0],
                         max_abs_err_f32=worst[torch.float32][0]))
-        del x, args, params
+        del x, args, params, bf
         torch.cuda.empty_cache()
 
     counters = _counters('swin_large_coco')
@@ -1550,23 +1594,23 @@ def phase_swin_large(dev):
         'swin_mlp_wide_gemm': r'mlp_wide_gemm_kernel'})
     print(f'swin_large_coco bf16 b{BATCH}, one profiled detect_fixed: {by_kernel}')
     depths = (2, 2, 18, 2)
-    want = dict(window_attention_n144=24, window_attention_n49=0, swin_mlp_fused=22,
-                swin_mlp_wide_ln=2, swin_mlp_wide_gemm=4)
+    want = dict(window_attention_n144=24, window_attention_n49=0, swin_mlp_fused=2,
+                swin_mlp_wide_ln=22, swin_mlp_wide_gemm=44)
     _check(all(by_kernel[k]['launches'] == v for k, v in want.items()),
            f'swin_large_coco bf16 kernels by name: expected {want}, got {by_kernel}')
     # the path's bound: each block's launch at its stage's shapes, half of them shifted
     wa_bound = sum(d / 2 * (_window_bound(bnw, h, c, n, False)[0] +
                             _window_bound(bnw, h, c, n, True)[0])
                    for d, (bnw, _, c, h, _) in zip(depths, SWIN_LARGE_STAGES))
-    fused_bound = sum(d * _mlp_bound(rows, c)[0]
-                      for d, (_, _, c, _, rows) in zip(depths[:3], SWIN_LARGE_STAGES[:3]))
-    wide_bound = depths[3] * _mlp_bound(SWIN_LARGE_STAGES[3][4], SWIN_LARGE_STAGES[3][2])[0]
+    fused_bound = depths[0] * _mlp_bound(SWIN_LARGE_STAGES[0][4], SWIN_LARGE_STAGES[0][2])[0]
+    wide_bound = sum(d * _mlp_bound(rows, c)[0]
+                     for d, (_, _, c, _, rows) in zip(depths[1:], SWIN_LARGE_STAGES[1:]))
     wa_ms = by_kernel['window_attention_n144']['device_ms']
     fused_ms = by_kernel['swin_mlp_fused']['device_ms']
     wide_ms = sum(by_kernel[k]['device_ms'] for k in ('swin_mlp_wide_ln', 'swin_mlp_wide_gemm'))
     print(f'  path device ms (bound ms): kernel 3 at 144 tokens {wa_ms:.3f} ({wa_bound:.3f}), '
-          f'kernel 4 fused C = 192-768 {fused_ms:.3f} ({fused_bound:.3f}), kernel 4 at C = 1536 '
-          f'{wide_ms:.3f} ({wide_bound:.3f})')
+          f'kernel 4 fused at C = 192 {fused_ms:.3f} ({fused_bound:.3f}), kernel 4 wide at '
+          f'C = 384-1536 {wide_ms:.3f} ({wide_bound:.3f})')
     del det, images, dets, masks
     torch.cuda.empty_cache()
     found = [
@@ -1585,13 +1629,13 @@ def phase_swin_large(dev):
              launches=by_kernel['window_attention_n144']['launches']),
         dict(name='swin_mlp_wide', route='cuda', source='yolact_minimal_torch/csrc/swin_mlp.cu',
              replaces='yolact_minimal_tpu/ops/swin_mlp.py:128',
-             max_abs_err=mlp[3]['max_abs_err'],
+             max_abs_err=mlp[2]['max_abs_err'],
              agreement=f'bf16 within {SWIN_BF16_REL_TOL:.3g} and float32 within '
                        f'{SWIN_F32_REL_TOL:.3g} of max |plain| at C = 192 / 384 / 768 / 1536 '
                        f'on swin_large rows; two bf16 launches bit-equal',
-             ms=mlp[3]['ms'], kernel_ms=mlp[3]['ms'], device_ms=mlp[3]['device_ms'],
-             plain_ms=mlp[3]['plain_ms'], bound_ms=mlp[3]['bound_ms'],
-             bound_by=mlp[3]['bound_by'], peak=BF16_PEAK, path_device_ms=wide_ms,
+             ms=mlp[2]['ms'], kernel_ms=mlp[2]['ms'], device_ms=mlp[2]['device_ms'],
+             plain_ms=mlp[2]['plain_ms'], bound_ms=mlp[2]['bound_ms'],
+             bound_by=mlp[2]['bound_by'], peak=BF16_PEAK, path_device_ms=wide_ms,
              path_bound_ms=wide_bound, fused_path_device_ms=fused_ms,
              fused_path_bound_ms=fused_bound, per_stage=mlp,
              launches=by_kernel['swin_mlp_wide_ln']['launches'])]

@@ -16,7 +16,8 @@ from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
 from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
                                                  launch_shapes, shared_bytes, swin_block,
                                                  swin_block_plain)
-from yolact_minimal_torch.ops.swin_mlp import kernel_geometry, mlp_block, mlp_block_plain
+from yolact_minimal_torch.ops.swin_mlp import (kernel_geometry, mlp_block, mlp_block_plain,
+                                               mlp_form)
 from yolact_minimal_torch.ops.window_attention import (window_attention,
                                                        window_attention_plain)
 
@@ -340,13 +341,19 @@ def _mlp_inputs(card, rng, rows, c, dtype):
     return x, params
 
 
-# Row counts one either side of 64 and of 128 rows (the bf16 kernel's tiles:
-# 128 rows at C = 96 and 192, 64 at 384 and 768; a block walks whole tiles,
-# in clusters of one), one row, and stage 3's 4624 rows at C = 768; at
-# C = 1536 (Swin-L's stage 3: 128-row tiles of three launches) its 4624 rows.
-MLP_ROWS = [(c, rows) for c, first in ((96, 1000), (192, 203), (384, 289), (768, 71))
-            for rows in (first, 1, 63, 65, 127, 129)] + [(768, 4624)] + \
-    [(1536, rows) for rows in (4624, 1, 127, 129)]
+# Row counts ragged against the bf16 tiles, per form (ops/swin_mlp.py::
+# mlp_form). The fused kernel (C = 96, 192): 128-row tiles, one either side
+# of 64 and of 128, and one row. The wide form (C = 384, 768, 1536): one
+# row, one either side of 128 (a partial last tile of 128 rows; of 64 rows
+# too at 129, for fc1's 64 x 192 tiles at C = 384), 65 (a partial 64-row
+# tile), and Swin-T's and Swin-L's stage rows at 544, batch 16.
+MLP_ROWS = [(c, rows) for c, first in ((96, 1000), (192, 203))
+            for rows in (first, 1, 63, 65, 127, 129)] + \
+    [(c, rows) for c in (384, 768, 1536) for rows in (1, 65, 127, 129)] + \
+    [(384, 18496), (384, 73984), (768, 4624), (768, 18496), (1536, 4624)]
+# The wide form's launches a call, by profiler name
+MLP_WIDE_LAUNCHES = {'ln': r'mlp_wide_ln_kernel<', 'fc1': r'mlp_wide_gemm_kernel<\d+,\s*false>',
+                     'fc2': r'mlp_wide_gemm_kernel<\d+,\s*true>'}
 
 
 @pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
@@ -368,24 +375,64 @@ def test_swin_mlp_kernel_matches_plain(card, dtype, tol, c, rows):
                                             ((64,), (64,), (256, 64), (256,), (64, 256), (64,))))
 
 
-@pytest.mark.parametrize('c,rows', [(96, 295936), (768, 4624), (384, 1)])
-def test_swin_mlp_geometry_covers_the_rows(card, c, rows):
-    geo = kernel_geometry(c, rows)
-    assert geo['rows_per_tile'] * geo['tiles'] >= rows > geo['rows_per_tile'] * (geo['tiles'] - 1)
-    assert 1 <= geo['blocks'] <= geo['tiles'] and geo['threads'] % 128 == 0
+@pytest.mark.parametrize('c,rows,launch', [(96, 295936, 'fused'), (192, 1, 'fused'),
+                                           (384, 73984, 'fc1'), (384, 73984, 'fc2'),
+                                           (768, 18496, 'fc1'), (768, 18496, 'fc2'),
+                                           (1536, 4624, 'fc1'), (1536, 4624, 'fc2'),
+                                           (768, 1, 'fc2')])
+def test_swin_mlp_geometry_covers_the_rows(card, c, rows, launch):
+    assert mlp_form(c, torch.bfloat16) == ('fused' if launch == 'fused' else 'wide')
+    geo = kernel_geometry(c, rows, launch)
+    row_tiles = geo['tiles'] // geo['col_tiles']
+    assert row_tiles * geo['col_tiles'] == geo['tiles']
+    assert geo['rows_per_tile'] * row_tiles >= rows > geo['rows_per_tile'] * (row_tiles - 1)
+    n = {'fused': c, 'fc1': 4 * c, 'fc2': c}[launch]
+    assert geo['cols_per_tile'] * geo['col_tiles'] == n
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert 1 <= geo['blocks'] <= min(geo['tiles'], 2 * sms) and geo['threads'] % 32 == 0
     assert 0 < geo['smem_bytes'] <= 232448 and 0 < geo['registers'] <= 255
+    with pytest.raises(RuntimeError):
+        kernel_geometry(c, rows, 'fused' if launch != 'fused' else 'fc1')
 
 
-@pytest.mark.parametrize('c', [96, 192, 384, 768, 1536])
-def test_swin_mlp_kernel_is_deterministic(card, c):
+@pytest.mark.parametrize('c,rows', [(96, 1000), (192, 1000), (384, 1000), (768, 1000),
+                                    (1536, 1000), (384, 73984), (768, 18496), (1536, 4624)])
+def test_swin_mlp_kernel_is_deterministic(card, c, rows):
     # no atomics and every sum in a fixed order: two launches, the same bits
-    x, params = _mlp_inputs(card, np.random.RandomState(2), 1000, c, torch.bfloat16)
+    x, params = _mlp_inputs(card, np.random.RandomState(2), rows, c, torch.bfloat16)
     k1, k2 = params[2].bfloat16(), params[4].bfloat16()
     args = (x, params[0], params[1], k1, params[3], k2, params[5])
     first = mlp_block(*args)
     second = mlp_block(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize('c,rows', [(384, 18496), (768, 4624), (768, 18496), (1536, 4624),
+                                    (192, 1000)])
+def test_swin_mlp_wide_form_launches_ln_then_two_gemms(card, c, rows):
+    """One call of the wide form launches mlp_wide_ln_kernel once and the
+    GEMM kernel twice (fc1 then fc2), as the benchmark's swin_mlp_wide_roofline
+    counts it; the fused form launches its one kernel and none of these."""
+    import re
+    x, params = _mlp_inputs(card, np.random.RandomState(3), rows, c, torch.bfloat16)
+    args = (x, params[0], params[1], params[2].bfloat16(), params[3], params[4].bfloat16(),
+            params[5])
+    mlp_block(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        mlp_block(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA and 'mlp_' in e.name]
+    got = {k: sum(bool(re.search(pat, n)) for n in names) for k, pat in MLP_WIDE_LAUNCHES.items()}
+    fused = sum('mlp_bf16_sm90_kernel' in n for n in names)
+    if mlp_form(c, torch.bfloat16) == 'wide':
+        assert got == {'ln': 1, 'fc1': 1, 'fc2': 1} and fused == 0, names
+        order = [k for n in names for k, pat in MLP_WIDE_LAUNCHES.items() if re.search(pat, n)]
+        assert order == ['ln', 'fc1', 'fc2'], names
+    else:
+        assert got == {'ln': 0, 'fc1': 0, 'fc2': 0} and fused == 1, names
 
 
 def _block_params(card, rng, c, heads, nw, dtype, masked, padded):

@@ -59,7 +59,7 @@ import torch.nn.functional as F
 from yolact_minimal_torch.models import remat as _remat
 from yolact_minimal_torch.ops.attn_block import attn_block
 from yolact_minimal_torch.ops.swin_block import swin_block
-from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block
+from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block, mlp_form
 from yolact_minimal_torch.ops.window_attention import KERNEL_TOKENS, window_attention
 from yolact_minimal_torch.parallel import mesh
 from yolact_minimal_torch.utils.trace import count, span
@@ -345,6 +345,8 @@ class SwinBlock(nn.Module):
             # stochastic depth on the MLP branch: plain ops, as in the JAX block
             y = fc2(F.gelu(fc1(_layer_norm(x, self.norm2, self.dtype)).float()).to(self.dtype))
             return x + drop_path(y, rate, generator)
+        count('swin.mlp_blocks', 1)
+        count('swin.mlp_wide_blocks', int(mlp_form(c, x.dtype, x.device.type) == 'wide'))
         y = mlp_block(x.reshape(-1, c), self.norm2.weight, self.norm2.bias, fc1.cast()[0],
                       fc1.bias, fc2.cast()[0], fc2.bias)
         return y.reshape(b, h, w, c)

@@ -4,16 +4,17 @@
 tensors on the card and runs the plain PyTorch version, `mlp_block_plain`,
 for tensors on the CPU, through the registered operator
 `yolact_torch::mlp_block`, so that `torch.export` records the call and an
-exported program launches the kernel. The kernel is built for the widths
-of `KERNEL_WIDTHS` and for `WIDE_WIDTH` (Swin-L's stage 3), where its bf16
-form is three launches with the hidden activations in device memory. It
-counts its calls on the card in `mlp_block.launches`, once a call at every
-width. The operator's backward (`register_autograd`) recomputes the plain
-version from the saved inputs, as the JAX package's custom_vjp does through
-its XLA form; gradients go to x, the LayerNorm scale and bias, k1, b1, k2
-and b2.
+exported program launches the kernel. `mlp_form` says how a call runs: in
+bf16 at the widths of `WIDE_WIDTHS` as three launches (LayerNorm, then fc1
+and fc2 on a persistent warp-specialised GEMM kernel) with the hidden
+activations in device memory, at the other widths of `MLP_WIDTHS`, and in
+float32 at every one, as one fused kernel. It counts its calls on the card
+in `mlp_block.launches`, once a call in either form. The operator's backward
+(`register_autograd`) recomputes the plain version from the saved inputs, as
+the JAX package's custom_vjp does through its XLA form; gradients go to x,
+the LayerNorm scale and bias, k1, b1, k2 and b2.
 
-Rounding places, shared by the plain version, the kernel and the JAX
+Rounding places, shared by the plain version, both forms and the JAX
 package's kernel: LayerNorm in float32 (eps 1e-5), rounded to the compute
 dtype; fc1 accumulates in float32, `+ b1` in float32, rounded; gelu (erf) in
 float32, rounded; fc2 accumulates in float32, `+ b2` and `+ x` in float32,
@@ -30,12 +31,25 @@ import torch.nn.functional as F
 from yolact_minimal_torch.ops import _build
 
 LN_EPS = 1e-5
-# Row widths the fused kernel is compiled for (swin_tiny's four stages;
-# kernels 5 and 6 take the same).
+# swin_tiny's four stage widths (kernels 5 and 6 take the same).
 KERNEL_WIDTHS = (96, 192, 384, 768)
-# swin_large's stage 3 (its stages 0-2 are swin_tiny's stages 1-3): in bf16,
-# LayerNorm, fc1 and fc2 as three launches.
-WIDE_WIDTH = 1536
+# The widths kernel 4 takes: swin_tiny's and swin_large's stages.
+MLP_WIDTHS = KERNEL_WIDTHS + (1536,)
+# bf16 widths that run as three launches: there a tile of the fused kernel
+# cannot hold its rows' fc2 accumulators and LN(x) on chip at a size that
+# keeps the tensor cores busy, and the two GEMM launches are faster at
+# Swin-T's and Swin-L's row counts alike (PERF.md).
+WIDE_WIDTHS = (384, 768, 1536)
+
+
+def mlp_form(c: int, dtype: torch.dtype, device_type: str = 'cuda') -> str:
+    """How `mlp_block` runs rows of width c in `dtype` on a device of that
+    type: 'plain' on the CPU; on the card 'wide' (LayerNorm, fc1 and fc2 as
+    three launches) for bf16 rows of a width in WIDE_WIDTHS, else 'fused'
+    (one kernel)."""
+    if device_type == 'cpu':
+        return 'plain'
+    return 'wide' if dtype == torch.bfloat16 and c in WIDE_WIDTHS else 'fused'
 
 
 def mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
@@ -89,12 +103,12 @@ def mlp_block(x, ln_scale, ln_bias, k1, b1, k2, b2) -> torch.Tensor:
 def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
     """The operator on a CPU or CUDA tensor: the plain version on the CPU,
     the kernel on the card."""
-    if x.device.type == 'cpu':
+    form = mlp_form(x.shape[1], x.dtype, x.device.type)
+    if form == 'plain':
         return mlp_block_plain(x, ln_scale, ln_bias, k1, b1, k2, b2)
     rows, c = x.shape
-    if c not in KERNEL_WIDTHS and c != WIDE_WIDTH:
-        raise ValueError(f'mlp_block: the kernel takes C in {KERNEL_WIDTHS + (WIDE_WIDTH,)}, '
-                         f'got {c}')
+    if c not in MLP_WIDTHS:
+        raise ValueError(f'mlp_block: the kernel takes C in {MLP_WIDTHS}, got {c}')
     k1, k2 = k1.to(x.dtype), k2.to(x.dtype)
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -103,12 +117,13 @@ def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
     ptrs = [t.data_ptr() for t in (x, ln_scale, ln_bias, k1, b1, k2, b2, out)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if c == WIDE_WIDTH and x.dtype == torch.bfloat16:
-            # room for LN(x) and the hidden activations, from PyTorch's cache
-            xn, h = torch.empty_like(x), x.new_empty((rows, 4 * c))
+        if form == 'wide':
+            # room for LN(x) [rows, c] and the hidden activations [rows, 4c]
+            # after it, from PyTorch's cache
+            room = x.new_empty(5 * rows * c)
             fn = lib.swin_mlp_wide
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-            args = (*ptrs, xn.data_ptr(), h.data_ptr(), rows)
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            args = (*ptrs, room.data_ptr(), room[rows * c:].data_ptr(), rows, c)
         else:
             fn = lib.swin_mlp
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -154,17 +169,20 @@ mlp_block.launches = 0
 
 
 GEOMETRY_KEYS = ('rows_per_tile', 'cluster', 'blocks', 'tiles', 'stages', 'smem_bytes',
-                 'threads', 'registers', 'spill_bytes')
+                 'threads', 'registers', 'spill_bytes', 'cols_per_tile', 'col_tiles')
+# kernel_geometry's launches, as swin_mlp_geometry numbers them
+GEOMETRY_LAUNCHES = {'fused': 0, 'fc1': 1, 'fc2': 2}
 
 
-def kernel_geometry(c: int, rows: int) -> dict:
-    """The bf16 kernel's launch geometry for `rows` rows of width `c` on the
-    current card, with the registers and local (spill) bytes a thread that
-    the compiled kernel reports. At WIDE_WIDTH, the fc1 launch's: a block
-    for each row tile and 128 hidden columns."""
+def kernel_geometry(c: int, rows: int, launch: str) -> dict:
+    """A bf16 launch's geometry for `rows` rows of width `c` on the current
+    card, with the registers and local (spill) bytes a thread that the
+    compiled kernel reports: `launch` 'fused' (the one kernel), or 'fc1' or
+    'fc2' (the wide form's GEMM launches; a tile is rows_per_tile x
+    cols_per_tile of the product's output, `tiles` of them)."""
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
     fn = _build.load('swin_mlp').swin_mlp_geometry
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.launch(fn, c, rows, ctypes.addressof(out))
+    _build.launch(fn, c, rows, GEOMETRY_LAUNCHES[launch], ctypes.addressof(out))
     return dict(zip(GEOMETRY_KEYS, out))
