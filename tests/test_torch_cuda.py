@@ -413,21 +413,27 @@ def test_swin_mlp_kernel_is_deterministic(card, c, rows):
 def test_swin_mlp_wide_form_launches_ln_then_two_gemms(card, c, rows):
     """One call of the wide form launches mlp_wide_ln_kernel once and the
     GEMM kernel twice (fc1 then fc2), as the benchmark's swin_mlp_wide_roofline
-    counts it; the fused form launches its one kernel and none of these."""
+    counts it; the fused form launches its one kernel and none of these. The
+    profiler can drop a trace's kernel events: a trace that holds fewer
+    kernels than the call launched is taken again, up to three times."""
     import re
     x, params = _mlp_inputs(card, np.random.RandomState(3), rows, c, torch.bfloat16)
     args = (x, params[0], params[1], params[2].bfloat16(), params[3], params[4].bfloat16(),
             params[5])
+    wide = mlp_form(c, torch.bfloat16) == 'wide'
     mlp_block(*args)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        mlp_block(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
-             if e.device_type == torch.autograd.DeviceType.CUDA and 'mlp_' in e.name]
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mlp_block(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+                 if e.device_type == torch.autograd.DeviceType.CUDA and 'mlp_' in e.name]
+        if len(names) >= (3 if wide else 1):
+            break
     got = {k: sum(bool(re.search(pat, n)) for n in names) for k, pat in MLP_WIDE_LAUNCHES.items()}
     fused = sum('mlp_bf16_sm90_kernel' in n for n in names)
-    if mlp_form(c, torch.bfloat16) == 'wide':
+    if wide:
         assert got == {'ln': 1, 'fc1': 1, 'fc2': 1} and fused == 0, names
         order = [k for n in names for k, pat in MLP_WIDE_LAUNCHES.items() if re.search(pat, n)]
         assert order == ['ln', 'fc1', 'fc2'], names

@@ -20,8 +20,8 @@
 //   section); the 4C-wide hidden activations never reach device memory.
 //   What bounds it (PERF.md): nothing overlaps within a warpgroup, so a
 //   chunk's gelu (erff on the CUDA cores) and the LayerNorm at each tile's
-//   start wait for and are waited on by the products; ~17% of the bound at
-//   swin_tiny's C = 96 and 192, 23% at swin_large's C = 192.
+//   start wait for and are waited on by the products; 14% and 21% of the
+//   bound at swin_tiny's C = 96 and 192, 23% at swin_large's C = 192.
 // - C = 384, 768 and 1536: LayerNorm, fc1 and fc2 as three launches with
 //   the hidden activations in device memory (the section after). There a
 //   tile's [rows, C] float32 fc2 accumulator and its LN(x) tile leave the
@@ -371,9 +371,10 @@ int geometry_sm90(int rows, int* g) {
 // What bounds it (probes/h100_swin_mlp, PERF.md): fc2 runs at ~600 TFLOP/s,
 // where a 128 x 128 tile's operands stream from L2 at 64 bytes a clock a
 // multiprocessor at the full rate; fc1 waits for its gelu epilogue where k
-// is short (C = 384: 0.31 of 0.52 ms at 73,984 rows). At 128 x 128 a
-// consumer spills 76-176 bytes a thread under ptxas's 168 registers; the
-// spill-free 64 x 192 tile (fc1 at C = 384) is slower at 768 and 1536.
+// is short (C = 384: 0.31 of 0.52 ms at 73,984 rows). A consumer's 128 x 128
+// float32 accumulators fit ptxas's 168 registers only because every shared
+// access is 32-bit: with the base aligned through an integer the epilogue
+// became generic 64-bit loads and stores, and spilled their addresses.
 // Rows past R load as zeros and are never stored.
 namespace wide {
 
@@ -439,8 +440,9 @@ mlp_wide_gemm_kernel(const __grid_constant__ CUtensorMap ta,
                      int rows) {
   using P = wide::Plan<C, FC2>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  // the 1024-aligned base as an offset into the shared array, so that the
+  // compiler keeps every access through it in 32-bit shared addressing
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t base = sm90::smem_addr(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR);
   uint64_t* empty = full + P::STAGES;
