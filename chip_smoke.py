@@ -777,7 +777,8 @@ def check_window_attention(dev):
 # Kernel 4's bf16 device ms a call before its wide form took these (C, rows):
 # the fused kernel (the three-launch form of 128 x 128 tiles at C = 1536),
 # from probes/h100_swin_mlp/variants.py --parent on the commit before the
-# wide form (PERF.md §6).
+# wide form (PERF.md §6). Printed beside this run's times for the reader only:
+# this run did not measure them, so they stay out of the kernels line.
 FUSED_DEVICE_MS = {(384, 73984): 0.6447, (384, 18496): 0.2170, (768, 18496): 1.1325,
                    (768, 4624): 0.3639, (1536, 4624): 0.4035}
 
@@ -811,8 +812,8 @@ def check_swin_mlp(dev):
     in float32 for the record, and beside the composition yardstick: bf16
     F.layer_norm (float32 statistics) -> F.linear -> F.gelu -> F.linear -> + x,
     which the port never calls, and where the wide form runs, beside the
-    fused kernel's device time before it (FUSED_DEVICE_MS). Prints the bf16
-    form and each launch's geometry."""
+    fused kernel's device time before it (FUSED_DEVICE_MS, printed only).
+    Prints the bf16 form and each launch's geometry."""
     import torch
     import torch.nn.functional as F
     from yolact_minimal_torch.ops.swin_mlp import mlp_block, mlp_block_plain, mlp_form
@@ -872,7 +873,7 @@ def check_swin_mlp(dev):
               f'{SWIN_BF16_REL_TOL:.3g}), float32 {worst[torch.float32][1]:.3g} (<= '
               f'{SWIN_F32_REL_TOL:.3g}); two launches bit-equal')
         per_stage.append(dict(shape=[rows, c], form=form, ms=ms, device_ms=device_ms,
-                              fused_device_ms_before=before, plain_ms=plain_ms, f32_ms=f32_ms,
+                              plain_ms=plain_ms, f32_ms=f32_ms,
                               composition_ms=composition_ms,
                               bound_ms=bound, bound_by=by, library_ms=None, geometry=geos,
                               max_abs_err=worst[torch.bfloat16][0],
@@ -1448,7 +1449,7 @@ def phase_swin_large(dev):
     launches) against its plain version; each bf16 form twice bit-equal,
     timed with CUDA events and in device time (the wide form's by launch)
     beside its bound, the fused kernel's device time before the wide form
-    (FUSED_DEVICE_MS) and the bf16 composition yardstick, with each launch's
+    (FUSED_DEVICE_MS, printed only) and the bf16 composition yardstick, with each launch's
     geometry. Kernel 3's bf16 backward at
     144 tokens must refuse. Then one seeded swin_large_coco Detector at
     batch 16 in bf16 and at batch 2 in float32: detect_fixed with the launch
@@ -1555,8 +1556,7 @@ def phase_swin_large(dev):
               f'{worst[torch.float32][1]:.3g}')
         geos = _mlp_geometries(c, rows, torch.cuda.get_device_properties(dev).multi_processor_count)
         mlp.append(dict(shape=[rows, c], form=form, ms=ms, device_ms=device_ms,
-                        device_ms_by_launch=by_launch, fused_device_ms_before=before,
-                        plain_ms=plain_ms, composition_ms=composition_ms, bound_ms=bound,
+                        device_ms_by_launch=by_launch, plain_ms=plain_ms, composition_ms=composition_ms, bound_ms=bound,
                         bound_by=by, geometry=geos, max_abs_err=worst[torch.bfloat16][0],
                         max_abs_err_f32=worst[torch.float32][0]))
         del x, args, params, bf

@@ -57,7 +57,10 @@ def test_a_forward_counts_its_mlp_blocks_and_the_wide_ones(name, blocks, wide, m
     assert _counts(model, 'cuda', monkeypatch) == (blocks, 0)
 
 
-def test_no_counter_without_a_profiler():
+def test_no_counter_without_a_profiler(monkeypatch):
+    def refuse(*args):
+        raise AssertionError('the route was looked up for a counter with no profiler recording')
+    monkeypatch.setattr(swin, 'mlp_form', refuse)
     trace.reset()
     model = swin.Swin(**SWIN_SPECS['swin_tiny']).eval()
     with torch.no_grad():

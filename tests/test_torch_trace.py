@@ -93,7 +93,17 @@ def test_without_a_profiler_no_range_is_built_and_nothing_is_kept(detector, imag
     cfg, batch = _train_case()
     train_step(create_train_state(cfg, 'cpu', seed=0), batch)
     trace.count('detect.valid', dets.valid)
+    trace.count('detect.size', lambda: refuse('a counted function'))
     assert trace.counts() == {}
+
+
+def test_a_counted_function_is_called_while_a_profiler_records():
+    trace.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        trace.count('size', lambda: 3)
+        trace.count('size', torch.tensor([1, 1]))
+    assert trace.counts() == {'size': 5}
+    trace.reset()
 
 
 @pytest.mark.parametrize('call', ['detect_fixed', '__call__'])

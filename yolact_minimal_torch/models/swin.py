@@ -346,7 +346,7 @@ class SwinBlock(nn.Module):
             y = fc2(F.gelu(fc1(_layer_norm(x, self.norm2, self.dtype)).float()).to(self.dtype))
             return x + drop_path(y, rate, generator)
         count('swin.mlp_blocks', 1)
-        count('swin.mlp_wide_blocks', int(mlp_form(c, x.dtype, x.device.type) == 'wide'))
+        count('swin.mlp_wide_blocks', lambda: int(mlp_form(c, x.dtype, x.device.type) == 'wide'))
         y = mlp_block(x.reshape(-1, c), self.norm2.weight, self.norm2.bias, fc1.cast()[0],
                       fc1.bias, fc2.cast()[0], fc2.bias)
         return y.reshape(b, h, w, c)

@@ -8,14 +8,16 @@ range costs host time (~15 us) even with no profiler to read it. Names are
 
 `count(name, value)` keeps a reference to a tensor the call computes
 anyway (a mask, a count), or a host integer (a size), and only while a
-profiler records: it launches nothing and waits for nothing. `counts()`
+profiler records: it launches nothing and waits for nothing. A value that
+costs host work to compute may be given as a function of no arguments,
+called only then. `counts()`
 sums what was kept, by name, synchronising then; `reset()` forgets it. A
 kept tensor must not be written in place afterwards.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Union
+from typing import Callable, Dict, List, Union
 
 import torch
 
@@ -31,9 +33,9 @@ def span(name: str):
     return torch.profiler.record_function(name) if _recording() else _OFF
 
 
-def count(name: str, value: Union[torch.Tensor, int]) -> None:
+def count(name: str, value: Union[torch.Tensor, int, Callable[[], int]]) -> None:
     if _recording():
-        _kept.setdefault(name, []).append(value)
+        _kept.setdefault(name, []).append(value() if callable(value) else value)
 
 
 def counts() -> Dict[str, int]:
