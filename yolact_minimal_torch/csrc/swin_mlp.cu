@@ -21,7 +21,11 @@
 //   What bounds it (PERF.md): nothing overlaps within a warpgroup, so a
 //   chunk's gelu (erff on the CUDA cores) and the LayerNorm at each tile's
 //   start wait for and are waited on by the products; 14% and 21% of the
-//   bound at swin_tiny's C = 96 and 192, 23% at swin_large's C = 192.
+//   bound at swin_tiny's C = 96 and 192, 23% at swin_large's C = 192. The
+//   wide form, given C = 192 on its best tiles, took 0.78 device ms against
+//   this kernel's 0.76 at swin_large's 295,936 rows and 0.20 against 0.22
+//   at swin_tiny's 73,984 (probes/h100_swin_mlp, PERF.md): no gain that
+//   would pay for a second form at this width.
 // - C = 384, 768 and 1536: LayerNorm, fc1 and fc2 as three launches with
 //   the hidden activations in device memory (the section after). There a
 //   tile's [rows, C] float32 fc2 accumulator and its LN(x) tile leave the
