@@ -160,9 +160,11 @@ def test_mask_kernel_matches_plain(card, do_crop, ph, out_size, slate):
     assert not got[~valid].any()
 
 
-def test_detector_runs_both_kernels(card):
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_detector_runs_both_kernels(card, dtype):
     from yolact_minimal_torch.pipeline import Detector
-    det = Detector(get_config('res50_coco', img_size=128, nms_score_thre=0.002))
+    det = Detector(get_config('res50_coco', img_size=128, nms_score_thre=0.002,
+                              compute_dtype=dtype))
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(0))
     s0, m0 = suppression_iou_max.launches, mask_finalize.launches
     dets, masks = det.detect_fixed(images, 128)
@@ -642,14 +644,18 @@ def test_swin_block_kernel_is_built_as_the_geometry_assumes(card, c):
         assert 0 < a['registers'] * a['threads'] <= 65536
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0]),
                                            ('attn_block', [1, 1, 0, 12, 12, 0]),
                                            ('whole', [1, 1, 0, 0, 0, 12]),
                                            (('whole', 'whole', 'composed', 'composed'),
-                                            [1, 1, 8, 8, 0, 4])])
-def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected):
+                                            [1, 1, 8, 8, 0, 4]),
+                                           (('whole', 'attn_block', 'composed', 'composed'),
+                                            [1, 1, 8, 10, 2, 2])])
+def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected, dtype):
     from yolact_minimal_torch.pipeline import Detector
-    det = Detector(get_config('swin_tiny_coco', img_size=128, nms_score_thre=0.002))
+    det = Detector(get_config('swin_tiny_coco', img_size=128, nms_score_thre=0.002,
+                              compute_dtype=dtype))
     det.model.backbone.set_block_forms(form)
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(0))
     counters = (suppression_iou_max, mask_finalize, window_attention, mlp_block, attn_block,
@@ -934,20 +940,25 @@ def test_res50_near_identity_train_step_on_the_card_equals_the_cpu(card):
         assert not over, f'{what}: {over}'
 
 
-def test_traditional_detector_on_the_card_equals_the_cpu_tail(card):
+@pytest.mark.parametrize('name,dtype', [('res50_coco', 'float32'),
+                                        ('swin_tiny_coco', 'bfloat16')])
+def test_traditional_detector_on_the_card_equals_the_cpu_tail(card, name, dtype):
     """--traditional_nms on the card: the forward and decode there, then the
     host tail; the slate equals the tail of a CPU Detector on the same raw
-    outputs, and kernel 1 is not launched."""
+    outputs, kernel 1 is not launched, and swin's blocks launch kernel 3
+    once each."""
     from yolact_minimal_torch.pipeline import Detector, _to_host
-    cfg = get_config('res50_coco', img_size=128, traditional_nms=True, nms_score_thre=0.012)
+    cfg = get_config(name, img_size=128, traditional_nms=True, nms_score_thre=0.012,
+                     compute_dtype=dtype)
     det = Detector(cfg, seed=0)
     cpu = Detector(cfg, det.model.state_dict(), device='cpu')
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
     recorded, infer_raw = [], det._infer_raw
     det._infer_raw = lambda x: recorded.append(infer_raw(x)) or recorded[-1]
-    s0 = suppression_iou_max.launches
+    s0, w0 = suppression_iou_max.launches, window_attention.launches
     dets, masks_proto, proto = det(images)
     assert suppression_iou_max.launches == s0
+    assert window_attention.launches - w0 == (12 if name.startswith('swin') else 0)
     assert int(dets.valid.sum()) > 0
     tail = cpu.traditional_tail(*_to_host(recorded[0]))
     for got, want in zip((*dets, masks_proto, proto), (*tail[0], *tail[1:])):
@@ -972,8 +983,10 @@ def test_remat_swin_step_on_the_card_equals_the_plain_step(card, dtype):
     generator seeded alike, drop_path on): the losses within 1e-4 relative,
     each gradient within 1e-2 of its norm and each part's (backbone, fpn,
     ...) within REMAT_PART_TOL of its norm in L2; kernels 3 and 4 launch
-    twice as often (the recompute). And a res50 remat step's BatchNorm
-    counters rise by one."""
+    twice as often (the recompute), kernel 3's backward kernel once a launch
+    of the plain step in bf16 (the float32 backward recomputes plainly). And
+    a res50 remat step's losses within 1e-3 relative of the plain step's,
+    its BatchNorm counters risen by one."""
     from yolact_minimal_torch.train_state import create_train_state, train_step
     _, batch = _res50_train_case()
     runs = []
@@ -981,14 +994,17 @@ def test_remat_swin_step_on_the_card_equals_the_plain_step(card, dtype):
         cfg = get_config('swin_tiny_custom', mode='train', img_size=128, max_gt=4, train_bs=2,
                          compute_dtype=dtype, remat=remat)
         state = create_train_state(cfg, card, seed=0)
-        w0, m0 = window_attention.launches, mlp_block.launches
+        w0, m0, b0 = (window_attention.launches, mlp_block.launches,
+                      window_attention.backward_launches)
         losses = train_step(state, batch)
         torch.cuda.synchronize()
         runs.append(([float(t) for t in losses],
                      {k: p.grad.detach().cpu().float() for k, p in state.model.named_parameters()},
-                     (window_attention.launches - w0, mlp_block.launches - m0)))
+                     (window_attention.launches - w0, mlp_block.launches - m0,
+                      window_attention.backward_launches - b0)))
     (plain, grads, plain_launches), ours = runs
-    assert plain_launches == (12, 1) and ours[2] == (24, 2)
+    backward = 12 if dtype == 'bfloat16' else 0
+    assert plain_launches == (12, 1, backward) and ours[2] == (24, 2, backward)
     np.testing.assert_allclose(ours[0], plain, rtol=1e-4)
     parts = {}
     for k, ref in grads.items():
@@ -1002,8 +1018,11 @@ def test_remat_swin_step_on_the_card_equals_the_plain_step(card, dtype):
             if np.sqrt(g2) > REMAT_PART_TOL[dtype] * np.sqrt(n2)}
     assert not over, over
     cfg, batch = _res50_train_case()
-    state = create_train_state(cfg.replace(remat=True, compute_dtype=dtype), card, seed=0)
-    train_step(state, batch)
+    res50 = []
+    for remat in (False, True):
+        state = create_train_state(cfg.replace(remat=remat, compute_dtype=dtype), card, seed=0)
+        res50.append([float(t) for t in train_step(state, batch)])
+    np.testing.assert_allclose(res50[1], res50[0], rtol=1e-3)
     counts = {int(v) for k, v in state.model.state_dict().items()
               if k.endswith('num_batches_tracked')}
     assert counts == {1}

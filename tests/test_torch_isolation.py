@@ -1,7 +1,9 @@
 """The port stands alone: it imports no JAX, no flax, no msgpack, nothing of
 the JAX package and no cv2 or scipy at import time, and its entry points run on the card
 unless the caller asks for the CPU."""
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -101,6 +103,33 @@ def test_every_kernel_source_names_what_it_replaces():
         assert 'cudaGetLastError' in text, path.name
         wrapper = (ROOT / 'yolact_minimal_torch' / 'ops' / f'{path.stem}.py').read_text()
         assert f"_build.load('{path.stem}')" in wrapper and '.launches += 1' in wrapper
+
+
+def test_every_kernel_entry_point_has_one_declared_signature():
+    """ops/_build.py declares exactly the extern "C" entry points of csrc/,
+    each with its C signature's arguments, kind for kind: ctypes passes the
+    widths a list states, so a wrong list would fail silently."""
+    from yolact_minimal_torch.ops import _build
+    csrc = ROOT / 'yolact_minimal_torch' / 'csrc'
+    in_c = {}
+    for path in sorted(csrc.glob('*.cu')) + [csrc / 'nms.cc']:
+        text = path.read_text()
+        pattern = r'extern "C" int (\w+)\(([^)]*)\)'
+        if path.suffix == '.cc':                # one extern "C" { ... } block
+            text, pattern = text[text.index('extern "C" {'):], r'^int (\w+)\(([^)]*)\)'
+        for name, params in re.findall(pattern, text, re.M):
+            kinds = []
+            for param in params.split(','):
+                param = ' '.join(param.replace('const ', '').split())
+                kinds.append('pointer' if '*' in param else param.rsplit(' ', 1)[0])
+            assert name not in in_c, name
+            in_c[name] = (path.name, kinds)
+    assert len(in_c) == 18 and in_c['greedy_nms'][0] == 'nms.cc'
+    kind = {ctypes.c_void_p: 'pointer', ctypes.c_int: 'int', ctypes.c_float: 'float'}
+    declared = {name: (source, [kind[t] for t in argtypes])
+                for source, entries in _build.SIGNATURES.items()
+                for name, argtypes in entries.items()}
+    assert declared == in_c
 
 
 def test_kernel_build_names_libraries_by_source_and_needs_nvcc(tmp_path, monkeypatch):

@@ -274,8 +274,6 @@ def _attn_block_op(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, bias
         return out
     lib = _build.load('attn_block')
     fn = lib.attn_block
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.launch(fn, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), bias.data_ptr(),
@@ -292,31 +290,8 @@ def _(x, wqkv, bqkv, bias, region, wproj, bproj, heads):
     return torch.empty_like(x)
 
 
-def register_plain_backward(op, plain, differentiable):
-    """Give the registered operator `op` the backward of the JAX package's
-    custom_vjps: `plain` recomputed under autograd, in float32 where it
-    computes in float32 (autocast off). The inputs at the positions
-    `differentiable` are saved and take gradients, in their own dtype and
-    shape; the others (tables, ints) are kept as they are and take none."""
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*(inputs[i] for i in differentiable))
-        ctx.inputs = [None if i in differentiable else t for i, t in enumerate(inputs)]
-
-    def backward(ctx, grad):
-        args = list(ctx.inputs)
-        with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
-            for i, t in zip(differentiable, ctx.saved_tensors):
-                args[i] = t.detach().requires_grad_(ctx.needs_input_grad[i])
-            wanted = [i for i in differentiable if args[i].requires_grad]
-            grads = torch.autograd.grad(plain(*args), [args[i] for i in wanted], grad)
-        grads = dict(zip(wanted, grads))
-        return tuple(grads.get(i) for i in range(len(args)))
-
-    op.register_autograd(backward, setup_context=setup_context)
-
-
 # gradients for all inputs but region (4) and heads (7)
-register_plain_backward(_attn_block_op, attn_block_plain, (0, 1, 2, 3, 5, 6))
+_build.register_plain_backward(_attn_block_op, attn_block_plain, (0, 1, 2, 3, 5, 6))
 
 
 attn_block.launches = 0
@@ -333,8 +308,6 @@ def kernel_attributes(c: int) -> dict:
     if c not in KERNEL_WIDTHS:
         raise ValueError(f'kernel_attributes: C in {KERNEL_WIDTHS}, got {c}')
     fn = _build.load('attn_block').attn_block_attributes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     names = ('tiled',) if c in TILED_WINDOWS else ('heads', 'proj')
     attrs = {}
     for which, name in enumerate(names):

@@ -108,8 +108,6 @@ def kernel_geometry(n_slots: int, out_size: int, nc: int, tile_rows: int, pw: in
     that the compiled kernel reports."""
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
     fn = _build.load('mask_finalize').mask_finalize_geometry
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(device_index):
         _build.launch(fn, n_slots, out_size, nc, BAND_ROWS, tile_rows, pw,
                       ctypes.addressof(out))
@@ -168,8 +166,6 @@ def mask_finalize(proto, coefs, boxes, valid, out_size: int,
     geo = kernel_geometry(b * d, out_size, nc, tile_rows, pw, index)
     lib = _build.load('mask_finalize')
     fn = lib.mask_finalize
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     tables = (ctypes.c_void_p * len(tabs))(*(t.data_ptr() for t in tabs))
     with torch.cuda.device(proto.device):
         stream = torch.cuda.current_stream(proto.device).cuda_stream

@@ -8,7 +8,6 @@ kernel launches in `suppression_iou_max.launches`.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -66,26 +65,14 @@ def suppression_iou_max(x1, y1, x2, y2, valid) -> torch.Tensor:
         return out
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        _build.launch(_entry('suppression_iou_max'), x1.data_ptr(), y1.data_ptr(),
-                      x2.data_ptr(), y2.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                      rows, k, stream)
+        _build.launch(_build.load('suppression').suppression_iou_max, x1.data_ptr(),
+                      y1.data_ptr(), x2.data_ptr(), y2.data_ptr(), valid.data_ptr(),
+                      out.data_ptr(), rows, k, stream)
     suppression_iou_max.launches += 1
     return out
 
 
 suppression_iou_max.launches = 0
-
-
-@lru_cache(maxsize=None)
-def _entry(name: str):
-    """An entry point of the built `csrc/suppression.cu`, its argument types
-    set once."""
-    fn = getattr(_build.load('suppression'), name)
-    fn.argtypes = {'suppression_iou_max': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 +
-                   [ctypes.c_void_p],
-                   'suppression_geometry': [ctypes.c_int] * 2 + [ctypes.c_void_p]}[name]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def kernel_geometry(rows: int, k: int, device_index: int = 0) -> dict:
@@ -95,5 +82,6 @@ def kernel_geometry(rows: int, k: int, device_index: int = 0) -> dict:
     thread that the compiled kernel reports."""
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
     with torch.cuda.device(device_index):
-        _build.launch(_entry('suppression_geometry'), rows, k, ctypes.addressof(out))
+        _build.launch(_build.load('suppression').suppression_geometry, rows, k,
+                      ctypes.addressof(out))
     return dict(zip(GEOMETRY_KEYS, out))

@@ -51,8 +51,7 @@ from yolact_minimal_torch.ops import _build
 from yolact_minimal_torch.ops import attn_block as attn_ops
 from yolact_minimal_torch.ops.attn_block import (Geometry, HeadGeometry, check_kernel_shape,
                                                  check_params, check_per_window, check_windows,
-                                                 head_geometry, register_plain_backward,
-                                                 tiled_geometry)
+                                                 head_geometry, tiled_geometry)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS
 from yolact_minimal_torch.ops.window_attention import _sm_count, window_attention_plain
 
@@ -304,8 +303,6 @@ def _swin_block_op(x: torch.Tensor, rowmask: Optional[torch.Tensor], ln1_scale: 
         region.shape[0] if region is not None else 0
     lib = _build.load('swin_block')
     fn = lib.swin_block
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -325,8 +322,8 @@ def _(x, rowmask, ln1_scale, ln1_bias, wqkv, bqkv, bias, region, wproj, bproj, l
 
 
 # gradients for all inputs but rowmask (1), region (7) and heads (16)
-register_plain_backward(_swin_block_op, swin_block_plain,
-                        (0, 2, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15))
+_build.register_plain_backward(_swin_block_op, swin_block_plain,
+                               (0, 2, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15))
 
 
 swin_block.launches = 0
@@ -343,8 +340,6 @@ def kernel_attributes(c: int) -> dict:
     states."""
     names = list(launch_shapes(c))
     fn = _build.load('swin_block').swin_block_attributes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     attrs = {}
     for which, name in enumerate(names):
         out = (ctypes.c_int * 8)()

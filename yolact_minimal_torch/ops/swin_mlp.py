@@ -122,13 +122,10 @@ def _forward(x, ln_scale, ln_bias, k1, b1, k2, b2):
             # after it, from PyTorch's cache
             room = x.new_empty(5 * rows * c)
             fn = lib.swin_mlp_wide
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             args = (*ptrs, room.data_ptr(), room[rows * c:].data_ptr(), rows, c)
         else:
             fn = lib.swin_mlp
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             args = (*ptrs, rows, c, int(x.dtype == torch.bfloat16))
-        fn.restype = ctypes.c_int
         _build.launch(fn, *args, stream)
     mlp_block.launches += 1
     return out
@@ -148,22 +145,8 @@ def _(x, ln_scale, ln_bias, k1, b1, k2, b2):
     return torch.empty_like(x)
 
 
-def _setup_context(ctx, inputs, output):
-    ctx.save_for_backward(*inputs)
-
-
-def _backward(ctx, grad):
-    inputs = ctx.saved_tensors
-    with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(inputs, ctx.needs_input_grad)]
-        out = mlp_block_plain(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-    return tuple(next(grads) if t.requires_grad else None for t in inputs)
-
-
-_mlp_block_op.register_autograd(_backward, setup_context=_setup_context)
+# gradients for all seven inputs
+_build.register_plain_backward(_mlp_block_op, mlp_block_plain, tuple(range(7)))
 
 mlp_block.launches = 0
 
@@ -182,7 +165,5 @@ def kernel_geometry(c: int, rows: int, launch: str) -> dict:
     cols_per_tile of the product's output, `tiles` of them)."""
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
     fn = _build.load('swin_mlp').swin_mlp_geometry
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     _build.launch(fn, c, rows, GEOMETRY_LAUNCHES[launch], ctypes.addressof(out))
     return dict(zip(GEOMETRY_KEYS, out))

@@ -11,25 +11,11 @@ called through ctypes; importing this module builds nothing.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
 
 from yolact_minimal_torch.ops import _build
-
-_F32P = ctypes.POINTER(ctypes.c_float)
-_I32P = ctypes.POINTER(ctypes.c_int)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load_host('nms')
-    lib.greedy_nms.restype = ctypes.c_int
-    lib.greedy_nms.argtypes = [_F32P, _F32P, ctypes.c_int, ctypes.c_float, _I32P]
-    return lib
-
 
 def greedy_nms(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float) -> np.ndarray:
     """Kept indices (descending score) for pixel-scale xyxy boxes [N, 4]."""
@@ -39,10 +25,9 @@ def greedy_nms(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float) -> np.n
     if boxes.shape != (n, 4) or scores.shape != (n,):
         raise ValueError(f'greedy_nms takes boxes [N, 4] and scores [N], got {boxes.shape} '
                          f'and {scores.shape}')
-    lib = _library()
     keep = np.empty(n, dtype=np.int32)
-    count = lib.greedy_nms(boxes.ctypes.data_as(_F32P), scores.ctypes.data_as(_F32P), n,
-                           float(iou_thresh), keep.ctypes.data_as(_I32P))
+    count = _build.load_host('nms').greedy_nms(boxes.ctypes.data, scores.ctypes.data, n,
+                                               float(iou_thresh), keep.ctypes.data)
     return keep[:count].copy()
 
 

@@ -220,8 +220,6 @@ def _window_attention_op(qkv: torch.Tensor, bias: torch.Tensor, region: Optional
     else:
         geo = kernel_geometry(bnw, heads, _sm_count(index))
         fn, launch = lib.window_attention, (is_bf16, geo.blocks, geo.groups, geo.per_head)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (3 + len(launch)) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
@@ -298,8 +296,6 @@ def window_attention_backward(qkv, bias, region: Optional[torch.Tensor], heads: 
     geo = backward_geometry(bnw, heads, _sm_count(index))
     part = torch.empty((geo.groups, n, n), dtype=torch.float32, device=qkv.device)
     fn = _build.load('window_attention').window_attention_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         _build.launch(fn, qkv.data_ptr(), bias.data_ptr(),
@@ -328,7 +324,5 @@ def kernel_attributes(backward: bool = False, wide: bool = False) -> dict:
     lib = _build.load('window_attention')
     fn = lib.window_attention_backward_attributes if backward else \
         lib.window_attention_n144_attributes if wide else lib.window_attention_attributes
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     _build.launch(fn, ctypes.addressof(out))
     return dict(zip(ATTRIBUTE_KEYS, out))
