@@ -26,7 +26,10 @@ are its own. Phases, in order; any failure exits nonzero:
      four stages, kernel 3 beside SDPA, kernel 4 beside a composition, kernel
      5 beside cuBLAS qkv + kernel 3 + cuBLAS proj, kernel 6 beside the block
      as PyTorch calls; kernels 3 (144 tokens) and 4 at swin_large_coco's four
-     stages; kernel 3's backward kernel at swin_tiny_coco's stages at
+     stages; the attention half's two glue kernels (to_windows,
+     from_windows) at both configs' four stage maps, beside their plain
+     versions (the PyTorch compositions they replace), with a byte bound
+     counted here; kernel 3's backward kernel at swin_tiny_coco's stages at
      batches 8 and 64, beside the plain recompute. Kernel 4's wide form and
      kernel 6 at C = 768 also by launch, in device time. Then the main
      paths, one Detector.detect_fixed call each after a warm-up, seeded:
@@ -127,8 +130,9 @@ EVAL_BS = 8
 # the swin paths: the form of each stage's blocks. 'mixed' is the whole-block
 # kernel at stage 0, the attention half-block kernel at stage 1 and the
 # composed form after: the path that drives kernels 5 and 6 in one forward.
-SWIN_KERNELS = ('window_attention', 'swin_mlp', 'attn_block', 'swin_block')
-SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp'),
+SWIN_KERNELS = ('window_attention', 'swin_mlp', 'attn_block', 'swin_block', 'to_windows',
+                'from_windows')
+SWIN_FORM_LAUNCHES = {'composed': ('window_attention', 'swin_mlp', 'to_windows', 'from_windows'),
                       'attn_block': ('attn_block', 'swin_mlp'),
                       'whole': ('swin_block',)}
 SWIN_PATHS = {'composed': ('composed',) * 4, 'attn_block': ('attn_block',) * 4,
@@ -315,9 +319,11 @@ def _measure(what, call, plain, gap, limit, cost, peak=peaks.BF16_FLOPS, yardsti
 
 def _row(name, source, replaces, agreement, measured, top=0):
     """A swin kernel's entry in the kernels line: its measurements by stage,
-    those of stage `top` also at the top level."""
-    return dict(name=name, source=f'yolact_minimal_torch/csrc/{source}',
-                replaces=f'yolact_minimal_tpu/ops/{replaces}', agreement=agreement,
+    those of stage `top` also at the top level. `replaces` None: no TPU
+    kernel (XLA fuses that work in the JAX package)."""
+    replaces = 'none: XLA fuses it' if replaces is None else f'yolact_minimal_tpu/ops/{replaces}'
+    return dict(name=name, source=f'yolact_minimal_torch/csrc/{source}', replaces=replaces,
+                agreement=agreement,
                 **measured[top], peak=peaks.BF16_FLOPS, per_stage=measured)
 
 
@@ -383,7 +389,7 @@ def phase_build():
     from yolact_minimal_torch.ops import _build
     t0 = time.perf_counter()
     libs = _build.build(['suppression', 'mask_finalize', 'window_attention', 'swin_mlp',
-                         'attn_block', 'swin_block'])
+                         'attn_block', 'swin_block', 'swin_glue'])
     print(f'built {sorted(libs)} in {time.perf_counter() - t0:.2f} s')
 
 
@@ -646,6 +652,54 @@ def table_swin_mlp(dev, config):
     return per_stage
 
 
+def table_swin_glue(dev):
+    """The attention half's two glue kernels at swin_tiny_coco's and
+    swin_large_coco's four stage maps (shifted; held also unshifted and in
+    float32): to_windows (norm1 into the shifted, padded windows) held to
+    its plain version (the composition F.layer_norm in float32, rounded,
+    pad, roll, partition) within one ulp, from_windows (the windows back
+    onto the shortcut) exactly; each timed beside its plain version. The
+    bound counts each byte read and written once: to_windows reads the
+    image rows and writes the window rows, from_windows reads the image
+    rows' windows and shortcut and writes them. Returns (to_windows' rows,
+    from_windows' rows)."""
+    import torch
+    from yolact_minimal_torch.ops.swin_glue import (from_windows, from_windows_plain,
+                                                    to_windows, to_windows_plain)
+    g = torch.Generator(device=dev).manual_seed(5)
+    to_rows, from_rows = [], []
+    for config in ('swin_tiny_coco', 'swin_large_coco'):
+        for i, s in enumerate(_stages(config)):
+            c, win, side, hp = s['c'], s['window'], s['side'], s['padded']
+            shift = win // 2
+            x32 = torch.randn(BATCH, side, side, c, device=dev, generator=g)
+            ln = (1 + 0.1 * torch.randn(c, device=dev, generator=g),
+                  0.1 * torch.randn(c, device=dev, generator=g))
+            x = x32.bfloat16()
+            rows, window_rows = BATCH * side * side, BATCH * hp * hp
+            y32 = torch.randn(window_rows // win ** 2, win ** 2, c, device=dev, generator=g)
+            y = y32.bfloat16()
+            what = f'{config} stage {i} [{BATCH}, {side}, {side}, {c}] window {win}'
+            to_rows.append(_measure(
+                f'kernel to_windows {what}', lambda: to_windows(x, *ln, win, shift),
+                lambda: to_windows_plain(x, *ln, win, shift), _rel_gap, SWIN_BF16_REL_TOL,
+                (2 * (rows + window_rows) * c + 8 * c, 0), config=config, shape=[rows, c],
+                window_rows=window_rows,
+                holds=_forms(to_windows, to_windows_plain, [
+                    ('bf16 unshifted', (x, *ln, win, 0), SWIN_BF16_REL_TOL),
+                    ('float32 shifted', (x32, *ln, win, shift), SWIN_F32_REL_TOL)])))
+            from_rows.append(_measure(
+                f'kernel from_windows {what}', lambda: from_windows(y, x, win, shift),
+                lambda: from_windows_plain(y, x, win, shift), _exact_gap, 0.0,
+                (3 * 2 * rows * c, 0), config=config, shape=[rows, c], window_rows=window_rows,
+                holds=_forms(from_windows, from_windows_plain, [
+                    ('bf16 unshifted', (y, x, win, 0), 0.0),
+                    ('float32 shifted', (y32, x32, win, shift), 0.0)])))
+            del x, x32, y, y32
+            torch.cuda.empty_cache()
+    return to_rows, from_rows
+
+
 def _block_inputs(dev, g, s):
     """Seeded float32 inputs of the two block kernels at swin_tiny stage `s`:
     x, LayerNorm parameters, Linear weights and biases scaled so that every
@@ -857,7 +911,12 @@ def phase_kernels(dev):
                       f'{bf16}, {config}', table_window_attention(dev, config)),
                  _row(mlp, 'swin_mlp.cu', 'swin_mlp.py:128', f'{bf16}, {config}',
                       table_swin_mlp(dev, config), top=mlp_top)]
-    rows += [_row('attn_block', 'attn_block.cu', 'window_attention.py:316', bf16,
+    to_rows, from_rows = table_swin_glue(dev)
+    rows += [_row('to_windows', 'swin_glue.cu', None, f'{bf16}, swin_tiny_coco and '
+                  'swin_large_coco', to_rows),
+             _row('from_windows', 'swin_glue.cu', None, 'bit-equal, swin_tiny_coco and '
+                  'swin_large_coco', from_rows),
+             _row('attn_block', 'attn_block.cu', 'window_attention.py:316', bf16,
                   table_attn_block(dev)),
              _row('swin_block', 'swin_block.cu', 'swin_block.py:198', bf16,
                   table_swin_block(dev)),
@@ -875,12 +934,14 @@ def _counters(name):
     from yolact_minimal_torch.ops.mask_finalize import mask_finalize
     from yolact_minimal_torch.ops.suppression import suppression_iou_max
     from yolact_minimal_torch.ops.swin_block import swin_block
+    from yolact_minimal_torch.ops.swin_glue import from_windows, to_windows
     from yolact_minimal_torch.ops.swin_mlp import mlp_block
     from yolact_minimal_torch.ops.window_attention import window_attention
     counters = {'suppression_iou_max': suppression_iou_max, 'mask_finalize': mask_finalize}
     if name.startswith('swin'):
         counters.update(window_attention=window_attention, swin_mlp=mlp_block,
-                        attn_block=attn_block, swin_block=swin_block)
+                        attn_block=attn_block, swin_block=swin_block, to_windows=to_windows,
+                        from_windows=from_windows)
     return counters
 
 
@@ -973,6 +1034,8 @@ ROW_LAUNCHES = {'suppression_iou_max': ('suppression_iou_max', 'res50_coco'),
                 'swin_mlp_wide': ('swin_mlp', 'swin_large_coco'),
                 'attn_block': ('attn_block', 'swin_tiny_coco/attn_block'),
                 'swin_block': ('swin_block', 'swin_tiny_coco/whole'),
+                'to_windows': ('to_windows', 'swin_tiny_coco/composed'),
+                'from_windows': ('from_windows', 'swin_tiny_coco/composed'),
                 'window_attention_backward': ('window_attention_backward',
                                               'swin_tiny_coco/mixed train bf16 2 steps')}
 

@@ -13,6 +13,8 @@ from yolact_minimal_torch.ops.attn_block import attn_block, attn_block_plain
 from yolact_minimal_torch.ops.mask_finalize import mask_finalize, mask_finalize_plain
 from yolact_minimal_torch.ops.suppression import (suppression_iou_max,
                                                   suppression_iou_max_plain)
+from yolact_minimal_torch.ops.swin_glue import (from_windows, from_windows_plain, to_windows,
+                                                to_windows_plain)
 from yolact_minimal_torch.ops.swin_block import (KERNEL_SHAPES, kernel_attributes,
                                                  launch_shapes, shared_bytes, swin_block,
                                                  swin_block_plain)
@@ -303,9 +305,10 @@ def test_window_attention_144_token_backward_refuses_bf16(card):
 def test_swin_large_detect_fixed_matches_the_reference(card, dtype, tol):
     """swin_large_coco at 544, b2, on the benchmark's weights: the network's
     four outputs against the float32 plain reference (benchmark/reference/
-    yolact_window.py) in relative L2, float32 to 1e-4 (summation order) and
-    bf16 to the benchmark cell's net_gap limit; 24 launches each of kernels 3
-    and 4 in both dtypes; the slate and masks come back."""
+    yolact_window.py) and against the port's own plain glue route in
+    relative L2, float32 to 1e-4 (summation order) and bf16 to the benchmark
+    cell's net_gap limit; 24 launches each of kernels 3 and 4 and of the two
+    glue kernels in both dtypes; the slate and masks come back."""
     from benchmark.core import weights_window
     from benchmark.reference.yolact_window import Yolact as Reference
     from yolact_minimal_torch.pipeline import Detector
@@ -319,19 +322,114 @@ def test_swin_large_detect_fixed_matches_the_reference(card, dtype, tol):
     images = torch.randn(2, 544, 544, 3, generator=torch.Generator().manual_seed(2))
     kept = []
     hook = det.model.register_forward_hook(lambda _m, _a, out: kept.append(out))
-    before = window_attention.launches, mlp_block.launches
+    counters = (window_attention, mlp_block, to_windows, from_windows)
+    before = [f.launches for f in counters]
     dets, masks = det.detect_fixed(images.numpy(), 544)
     torch.cuda.synchronize()
-    hook.remove()
-    assert (window_attention.launches - before[0], mlp_block.launches - before[1]) == (24, 24)
+    assert [f.launches - n for f, n in zip(counters, before)] == [24, 24, 24, 24]
     assert masks.shape == (2, 100, 544, 544) and int(dets.valid.sum()) == 200
+    # the plain glue's route, as training and the CPU take it
+    from yolact_minimal_torch.models.swin import SwinBlock
+    glue = SwinBlock._fused_glue
+    SwinBlock._fused_glue = lambda self, x, rate: False
+    try:
+        det.detect_fixed(images.numpy(), 544)
+    finally:
+        SwinBlock._fused_glue = glue
+    hook.remove()
+    assert [f.launches - n for f, n in zip(counters, before)] == [48, 48, 24, 24]
     ref = Reference(model).to(card).eval()
     ref.load_state_dict(sd)
     with torch.no_grad():
         want = ref(images.to(card))
-    for got, w in zip(kept[0], want):
+    for got, plain, w in zip(kept[0], kept[1], want):
         gap = float((got.float() - w).norm() / w.norm())
         assert gap <= tol, gap
+        gap = float((got.float() - plain.float()).norm() / plain.float().norm())
+        assert gap <= tol, gap
+
+
+# The attention half's glue kernels at every stage map of Swin-T (window 7)
+# and Swin-L (window 12) at 544: (C, window, side) by stage.
+GLUE_STAGES = [(c, 7, side) for c, side in zip((96, 192, 384, 768), (136, 68, 34, 17))] + \
+    [(c, 12, side) for c, side in zip((192, 384, 768, 1536), (136, 68, 34, 17))]
+GLUE_MANTISSA = {torch.float32: 23, torch.bfloat16: 7}
+
+
+def _ulps(got, ref, dtype):
+    """|got - ref| in units of the last place of `dtype` at the larger of the
+    two magnitudes, and at 1 under 1: a normalised row's values are O(1), and
+    the float32 sums that make them err by a share of that scale, not of a
+    value that cancels to near 0."""
+    got, ref = got.double(), ref.double()
+    _, exp = torch.frexp(torch.maximum(torch.maximum(got.abs(), ref.abs()),
+                                       torch.ones_like(got)))
+    ulp = torch.ldexp(torch.ones_like(got), exp - 1 - GLUE_MANTISSA[dtype])
+    return (got - ref).abs() / ulp
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('batch', [16, 2])
+@pytest.mark.parametrize('shifted', [False, True])
+@pytest.mark.parametrize('c,window,side', GLUE_STAGES)
+def test_swin_glue_kernels_match_plain(card, dtype, batch, shifted, c, window, side):
+    """to_windows: padding rows zero bit for bit, every other value (norm1)
+    in bf16 within one ulp of the plain version; in float32 within the swin
+    kernels' float32 tolerance (two float32 LayerNorms that sum in another
+    order and take rsqrt at 2 ulp differ by several ulps: the number is
+    printed, with the share of bit-equal values); from_windows bit-equal to
+    `shortcut + ` the plain reverse. One launch each."""
+    from yolact_minimal_torch.models.swin import pad_rowmask
+    g = torch.Generator(device=card).manual_seed(side * c + batch)
+    x = (torch.randn(batch, side, side, c, device=card, generator=g) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(c, device=card, generator=g)
+    bias = 0.1 * torch.randn(c, device=card, generator=g)
+    shift = window // 2 if shifted else 0
+    before = to_windows.launches, from_windows.launches
+    got = to_windows(x, scale, bias, window, shift)
+    y = torch.randn(got.shape, device=card, generator=g).to(dtype)
+    back = from_windows(y, x, window, shift)
+    torch.cuda.synchronize()
+    assert (to_windows.launches, from_windows.launches) == (before[0] + 1, before[1] + 1)
+    ref = to_windows_plain(x, scale, bias, window, shift)
+    assert got.shape == ref.shape and got.dtype == dtype and got.is_contiguous()
+    hp = -(-side // window) * window
+    mask = pad_rowmask(side, side, hp, hp, shift, window)
+    if mask is not None:
+        pad = torch.from_numpy(mask == 0).to(card).repeat(batch, 1)
+        assert pad.any() and bool((got[pad] == 0).all()) and bool((ref[pad] == 0).all())
+    ulps = _ulps(got, ref, dtype)
+    print(f'to_windows C {c} window {window} side {side} b{batch} shift {shift} {dtype}: '
+          f'{(ulps == 0).double().mean().item():.6f} of the values bit-equal, '
+          f'at most {ulps.max().item():.3g} ulp')
+    if dtype == torch.bfloat16:
+        assert ulps.max().item() <= 1
+    else:
+        _assert_close_rel(got, ref, dict(SWIN_TOLS)[torch.float32])
+    assert back.is_contiguous() and torch.equal(back, from_windows_plain(y, x, window, shift))
+
+
+@pytest.mark.parametrize('dtype,tol', SWIN_TOLS)
+def test_eval_swin_block_takes_the_glue_kernels(card, dtype, tol):
+    """An eval SwinBlock of Swin-L's stage 1 (C = 384, window 12, shifted) on
+    a map that pads: with no gradient wanted it launches the two glue kernels
+    once each, and its output is the plain glue's (under autograd: the route
+    it takes there) within the swin kernels' tolerance."""
+    from yolact_minimal_torch.models.swin import SwinBlock
+    torch.manual_seed(0)
+    block = SwinBlock(384, 12, 6, 12, dtype).to(card).eval()
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn(2, 34, 34, 384, generator=torch.Generator().manual_seed(1)).to(card, dtype)
+    before = to_windows.launches, from_windows.launches
+    with torch.no_grad():
+        fused = block(x)
+    torch.cuda.synchronize()
+    assert (to_windows.launches, from_windows.launches) == (before[0] + 1, before[1] + 1)
+    plain = block(x)
+    assert plain.requires_grad
+    assert (to_windows.launches, from_windows.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close_rel(fused, plain.detach(), tol)
 
 
 def _mlp_inputs(card, rng, rows, c, dtype):
@@ -645,13 +743,13 @@ def test_swin_block_kernel_is_built_as_the_geometry_assumes(card, c):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0]),
-                                           ('attn_block', [1, 1, 0, 12, 12, 0]),
-                                           ('whole', [1, 1, 0, 0, 0, 12]),
+@pytest.mark.parametrize('form,expected', [('composed', [1, 1, 12, 12, 0, 0, 12, 12]),
+                                           ('attn_block', [1, 1, 0, 12, 12, 0, 0, 0]),
+                                           ('whole', [1, 1, 0, 0, 0, 12, 0, 0]),
                                            (('whole', 'whole', 'composed', 'composed'),
-                                            [1, 1, 8, 8, 0, 4]),
+                                            [1, 1, 8, 8, 0, 4, 8, 8]),
                                            (('whole', 'attn_block', 'composed', 'composed'),
-                                            [1, 1, 8, 10, 2, 2])])
+                                            [1, 1, 8, 10, 2, 2, 8, 8])])
 def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected, dtype):
     from yolact_minimal_torch.pipeline import Detector
     det = Detector(get_config('swin_tiny_coco', img_size=128, nms_score_thre=0.002,
@@ -659,7 +757,7 @@ def test_swin_detector_runs_the_kernels_of_its_form(card, form, expected, dtype)
     det.model.backbone.set_block_forms(form)
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(0))
     counters = (suppression_iou_max, mask_finalize, window_attention, mlp_block, attn_block,
-                swin_block)
+                swin_block, to_windows, from_windows)
     before = [f.launches for f in counters]
     dets, masks = det.detect_fixed(images, 128)
     torch.cuda.synchronize()
@@ -1083,9 +1181,32 @@ def test_registered_op_on_the_card_passes_opcheck(card, name, dtype):
     assert torch.equal(out, wrapper(*args))
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('name', ['to_windows', 'from_windows'])
+def test_glue_op_on_the_card_passes_opcheck(card, name, dtype):
+    """Each glue operator's CUDA implementation against its fake and its
+    schema (no backward: the kernels have none). The operator launches the
+    kernel once a call and gives the wrapper's bits."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 12, 12, 96, generator=g).to(card, dtype)
+    scale, bias = (1 + torch.randn(96, generator=g) * 0.1).to(card), torch.zeros(96, device=card)
+    y = torch.randn(8, 49, 96, generator=g).to(card, dtype)
+    wrapper, args = {'to_windows': (to_windows, (x, scale, bias, 7, 3)),
+                     'from_windows': (from_windows, (y, x, 7, 3))}[name]
+    op = getattr(torch.ops.yolact_torch, name)
+    result = torch.library.opcheck(op, args, test_utils=('test_schema', 'test_faketensor'))
+    assert set(result.values()) == {'SUCCESS'}, result
+    before = wrapper.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(out, wrapper(*args))
+
+
 def test_bf16_swin_artifact_on_the_card_equals_its_live_model(card, tmp_path):
     """swin_tiny_coco at 128 px in bf16 and the 'mixed' forms: the artifact
-    launches each swin kernel as the live forward does and gives its bits."""
+    launches each swin kernel as the live forward does (the glue kernels in
+    the 'composed' stages' 8 blocks) and gives its bits."""
     from yolact_minimal_torch import deploy
     from yolact_minimal_torch.pipeline import Detector
     cfg = get_config('swin_tiny_coco', img_size=128, compute_dtype='bfloat16')
@@ -1097,11 +1218,11 @@ def test_bf16_swin_artifact_on_the_card_equals_its_live_model(card, tmp_path):
     images = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(card)
     with torch.inference_mode():
         live = det.model(images)
-    counters = (window_attention, mlp_block, attn_block, swin_block)
+    counters = (window_attention, mlp_block, attn_block, swin_block, to_windows, from_windows)
     before = [f.launches for f in counters]
     outs = call(images)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(counters, before)] == [8, 10, 2, 2]
+    assert [f.launches - n for f, n in zip(counters, before)] == [8, 10, 2, 2, 8, 8]
     for a, b in zip(live, outs):
         assert torch.equal(a, b)
 

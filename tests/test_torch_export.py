@@ -10,6 +10,7 @@ import io
 import os
 import subprocess
 import sys
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -25,7 +26,8 @@ from yolact_minimal_tpu.ops.boxes import make_anchors as jax_make_anchors
 from yolact_minimal_torch import deploy
 from yolact_minimal_torch.config import get_config
 from yolact_minimal_torch.models import swin
-from yolact_minimal_torch.ops import attn_block, swin_block, swin_mlp, window_attention
+from yolact_minimal_torch.ops import (attn_block, swin_block, swin_glue, swin_mlp,
+                                      window_attention)
 from yolact_minimal_torch.pipeline import Detector
 from yolact_minimal_torch.utils import image_io
 from yolact_minimal_torch.utils.checkpoint import save_checkpoint
@@ -44,6 +46,7 @@ REL_TOL = 1e-4
 BATCH_ATOL = 1e-5
 NAMES = ('class', 'box', 'coef', 'proto')
 OPS = ('window_attention', 'mlp_block', 'attn_block', 'swin_block')
+GLUE_OPS = ('to_windows', 'from_windows')
 MIXED = ('whole', 'attn_block', 'composed', 'composed')
 # the small swin of tests/test_torch_swin.py: 72 px pads at every stage; head width 32
 SMALL = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8))
@@ -61,8 +64,9 @@ def _ops_called(program):
 # --- the registered operators -------------------------------------------------------
 
 def _op_inputs(seed=0, grad=False):
-    """Small CPU inputs of the four operators: C = 32, one head, 8 windows (two
-    images of a 14 x 14 map padded from 12 x 12), shifted."""
+    """Small CPU inputs of the operators: C = 32, one head, 8 windows (two
+    images of a 14 x 14 map padded from 12 x 12), shifted; the glue's maps
+    are those two 12 x 12 images."""
     g = torch.Generator().manual_seed(seed)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale
     c, heads = 32, 1
@@ -79,18 +83,22 @@ def _op_inputs(seed=0, grad=False):
         'mlp_block': tuple(leaf(t) for t in (r(98, c),) + ln + mlp),
         'attn_block': (r(8, 49, c),) + attn + (heads,),
         'swin_block': (r(8, 49, c), rowmask) + ln + attn[:2] + attn[2:] + ln + mlp + (heads,),
+        'to_windows': (r(2, 12, 12, c),) + ln + (7, 3),
+        'from_windows': (r(8, 49, c), r(2, 12, 12, c), 7, 3),
     }
 
 
 PLAIN = {'window_attention': window_attention.window_attention_plain,
          'mlp_block': swin_mlp.mlp_block_plain, 'attn_block': attn_block.attn_block_plain,
-         'swin_block': swin_block.swin_block_plain}
+         'swin_block': swin_block.swin_block_plain, 'to_windows': swin_glue.to_windows_plain,
+         'from_windows': swin_glue.from_windows_plain}
 WRAPPERS = {'window_attention': window_attention.window_attention,
             'mlp_block': swin_mlp.mlp_block, 'attn_block': attn_block.attn_block,
-            'swin_block': swin_block.swin_block}
+            'swin_block': swin_block.swin_block, 'to_windows': swin_glue.to_windows,
+            'from_windows': swin_glue.from_windows}
 
 
-@pytest.mark.parametrize('name', OPS)
+@pytest.mark.parametrize('name', OPS + GLUE_OPS)
 def test_registered_op_passes_opcheck_and_equals_its_plain_version(name):
     op = getattr(torch.ops.yolact_torch, name)
     args = _op_inputs()[name]
@@ -235,6 +243,46 @@ def test_bf16_swin_artifact_equals_the_live_bf16_model(tmp_path):
         live = det.model(torch.from_numpy(img))
     for name, a, b in zip(NAMES, live, call(img)):
         assert torch.equal(a, b), name
+
+
+def test_swin_export_records_the_glue_ops_where_the_card_would(monkeypatch, tmp_path):
+    """The export CLI's path (`deploy.export_model`) with the glue route
+    decided as on the card (its device test answered as there, the rest as
+    the call observes): the export traces the inference, so each 'composed'
+    block of the 'mixed' forms calls the two glue operators; the artifact
+    gives the live model's bits, and loads and runs where no model is
+    built."""
+    decide = swin.SwinBlock._fused_glue
+    monkeypatch.setattr(swin.SwinBlock, '_fused_glue', lambda self, x, rate: decide(
+        self, types.SimpleNamespace(is_cuda=True, dtype=x.dtype, requires_grad=x.requires_grad),
+        rate))
+    cfg = get_config('swin_tiny_coco', img_size=64, compute_dtype='bfloat16')
+    det = Detector(cfg, device='cpu', seed=0)
+    det.model.backbone.set_block_forms(MIXED)
+    path = deploy.export_model(cfg, det.model, str(tmp_path / 'swin.pt2'), check_parity=False,
+                               batch=2, device='cpu')
+    called = _ops_called(torch.export.load(path))
+    assert called['to_windows'] == called['from_windows'] == 8     # stages 2-3: 6 + 2 blocks
+    call, _, _ = deploy.load_exported(path, device='cpu')
+    img = np.random.RandomState(14).normal(size=(2, 64, 64, 3)).astype(np.float32)
+    with torch.inference_mode():
+        live = det.model(torch.from_numpy(img))
+    for name, a, b in zip(NAMES, live, call(img)):
+        assert torch.equal(a, b), name
+    # and a process that builds no model (as detect_with_export) loads and runs it: deploy
+    # registers the glue ops
+    code = ('import sys\nimport numpy as np\n'
+            'from yolact_minimal_torch.deploy import load_exported\n'
+            f'call, _, _ = load_exported({path!r}, device="cpu")\n'
+            'outs = call(np.zeros((2, 64, 64, 3), np.float32))\n'
+            'assert not [k for k in sys.modules if k.startswith("yolact_minimal_torch.models")]\n'
+            'print("ok", len(outs))\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env['PYTHONPATH'] = str(ROOT)
+    proc = subprocess.run([sys.executable, '-c', code], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith('ok 4')
 
 
 # --- the CLIs and the driver -----------------------------------------------------------

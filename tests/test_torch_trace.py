@@ -157,6 +157,30 @@ def test_swin_forward_opens_two_glue_spans_a_block(form, training):
     assert [s[0] for s in spans] == ['yolact.swin.glue'] * (2 * 8)
 
 
+@pytest.mark.parametrize('route', ['plain', 'fused'])
+def test_swin_counters_count_the_attention_halves_on_both_glue_routes(monkeypatch, route):
+    """Every attention half counts in `swin.attn_blocks`, those that take the
+    glue kernels in `swin.glue_fused_blocks` (the route forced here: on the
+    CPU its operators run their plain versions), and `swin.rows` /
+    `swin.window_rows` count the same rows on either route; the fused route
+    opens the same two glue spans a block."""
+    model = swin.Swin(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
+                      drop_path_rate=0.0).eval()
+    if route == 'fused':
+        monkeypatch.setattr(swin.SwinBlock, '_fused_glue', lambda self, x, rate: True)
+    x = torch.randn(1, IMG, IMG, 3)
+    with torch.no_grad():
+        _, spans = _profiled(lambda: model(x))
+    assert [s[0] for s in spans] == ['yolact.swin.glue'] * (2 * 8)
+    sides = [IMG // 4 >> i for i in range(4)]                 # 16, 8, 4, 2
+    padded = [-(-side // 7) * 7 for side in sides]            # 21, 14, 7, 7
+    got = trace.counts()
+    assert got['swin.attn_blocks'] == 8
+    assert got.get('swin.glue_fused_blocks') == (8 if route == 'fused' else None)
+    assert got['swin.rows'] == 2 * sum(side * side for side in sides)
+    assert got['swin.window_rows'] == 2 * sum(p * p for p in padded)
+
+
 @pytest.mark.parametrize('pre_topk', [64, 256, 0])
 def test_detect_counters_equal_independent_sums(pre_topk):
     rng = np.random.RandomState(1)

@@ -16,8 +16,8 @@ recorded in `meta.json`. The export then runs the reference's immediate
 parity check: the live forward against the reloaded artifact.
 
 `load_exported` restores a callable whose outputs feed the numpy postprocess
-(ops/nms_numpy.py). It imports the operator registrations (the four ops
-modules, which this module imports) and nothing of `models/`.
+(ops/nms_numpy.py). It imports the operator registrations (the five swin
+ops modules, which this module imports) and nothing of `models/`.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ import torch
 
 # Importing the ops modules registers the yolact_torch:: operators that an
 # exported swin program calls; torch.export.load needs them.
-from yolact_minimal_torch.ops import attn_block, swin_block, swin_mlp, window_attention  # noqa: F401
+from yolact_minimal_torch.ops import (attn_block, swin_block, swin_glue, swin_mlp,  # noqa: F401
+                                      window_attention)
 from yolact_minimal_torch.config import Config
 from yolact_minimal_torch.ops.boxes import make_anchors
 from yolact_minimal_torch.utils.device import resolve_device
@@ -60,7 +61,10 @@ def export_model(cfg: Config, state_dict_or_model: Union[dict, torch.nn.Module],
         from yolact_minimal_torch.pipeline import Detector   # builds the model: not at import
         model = Detector(cfg, state_dict_or_model, device=device).model
     example = torch.zeros(batch, cfg.img_size, cfg.img_size, 3, device=device)
-    program = torch.export.export(model, (example,), strict=False)
+    # traced as the inference it is: the forward takes the routes of a call
+    # that needs no gradient (models/swin.py's glue kernels)
+    with torch.no_grad():
+        program = torch.export.export(model, (example,), strict=False)
 
     meta = {f: getattr(cfg, f) for f in META_FIELDS}
     meta.update(class_names=list(cfg.class_names), batch=batch, device=device.type)

@@ -21,6 +21,11 @@ compute the same function from the same parameters:
   kernel, then `ops/swin_mlp.py`;
 - 'whole': `ops/swin_block.py` for the whole block, norm1 to the second
   residual, on the windowed pre-norm rows.
+In the 'composed' form a call on the card that needs no gradient runs the
+attention half's glue as the two kernels of `ops/swin_glue.py`: norm1
+written straight into the shifted, padded windows, and the windows added
+back onto the residual; training, the CPU and the other two forms run the
+plain glue (pad, roll, partition and back), which is the kernels' reference.
 `Swin` takes the form per stage and `set_block_forms` switches an
 instance; 'attn_block' and 'whole' need 7x7 windows (kernels 5 and 6 are
 built for them). In bfloat16 the forms round at different places ('whole'
@@ -49,7 +54,8 @@ output norms stay outside, as in the JAX package.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+import itertools
+from typing import Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +65,10 @@ import torch.nn.functional as F
 from yolact_minimal_torch.models import remat as _remat
 from yolact_minimal_torch.ops.attn_block import attn_block
 from yolact_minimal_torch.ops.swin_block import swin_block
+# window_partition and window_reverse live with the glue; tests and probes
+# take them from here too
+from yolact_minimal_torch.ops.swin_glue import (from_windows, padded, partition, reverse,
+                                                to_windows, window_partition, window_reverse)
 from yolact_minimal_torch.ops.swin_mlp import LN_EPS, mlp_block, mlp_form
 from yolact_minimal_torch.ops.window_attention import KERNEL_TOKENS, window_attention
 from yolact_minimal_torch.parallel import mesh
@@ -142,21 +152,6 @@ def _rowmask_on(h: int, w: int, hp: int, wp: int, shift: int, device: torch.devi
     return _table_on(pad_rowmask, h, w, hp, wp, shift, window, device=device)
 
 
-def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B * nW, window*window, C]."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // window, window, w // window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
-
-
-def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
-    """[B * nW, window*window, C] -> [B, H, W, C]."""
-    c = x.shape[-1]
-    b = x.shape[0] // ((h // window) * (w // window))
-    x = x.reshape(b, h // window, w // window, window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
-
-
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
                         norm.eps).to(dtype)
@@ -181,7 +176,7 @@ class _Derived:
         return self._value
 
 
-def _needs_grad(params: Sequence[torch.Tensor]) -> bool:
+def _needs_grad(params: Iterable[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(p.requires_grad for p in params)
 
 
@@ -302,44 +297,66 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, dim * 4, dtype)
 
-    def _to_windows(self, x):
-        """Pad to a multiple of the window, roll by the shift, partition.
-        Returns the windows, the padded size and the region ids (or None).
-        Counts the rows it is given and the rows of its windows."""
+    def _padded(self, x):
+        """The padded size of x's map; counts the rows the attention half is
+        given and the rows of its windows."""
         b, h, w, _ = x.shape
-        win = self.window
-        pad_b = (win - h % win) % win
-        pad_r = (win - w % win) % win
-        hp, wp = h + pad_b, w + pad_r
+        hp, wp = padded(h, w, self.window)
         count('swin.rows', b * h * w)
         count('swin.window_rows', b * hp * wp)
-        region = None
-        with span('yolact.swin.glue'):
-            if pad_b or pad_r:
-                x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-            if self.shift > 0:
-                x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-                region = _regions_on(hp, wp, x.device, win)
-            return window_partition(x, win), hp, wp, region
+        return hp, wp
 
-    def _from_windows(self, windows, hp, wp, h, w):
+    def _region(self, hp, wp, device):
+        return _regions_on(hp, wp, device, self.window) if self.shift > 0 else None
+
+    def _to_windows(self, x):
+        """Pad to a multiple of the window, roll by the shift, partition.
+        Returns the windows, the padded size and the region ids (or None)."""
+        hp, wp = self._padded(x)
         with span('yolact.swin.glue'):
-            x = window_reverse(windows, self.window, hp, wp)
-            if self.shift > 0:
-                x = torch.roll(x, (self.shift, self.shift), dims=(1, 2))
-            return x[:, :h, :w, :] if (hp, wp) != (h, w) else x
+            return partition(x, self.window, self.shift), hp, wp, self._region(hp, wp, x.device)
+
+    def _from_windows(self, windows, h, w):
+        with span('yolact.swin.glue'):
+            return reverse(windows, self.window, self.shift, h, w)
+
+    def _fused_glue(self, x, rate) -> bool:
+        """Whether the attention half's glue runs as the two kernels of
+        `ops/swin_glue.py`: in the 'composed' form, on the card, in the
+        compute dtype, with no stochastic depth and no gradient needed (the
+        kernels have no backward)."""
+        return (not self.fused_attn_block and not self.fused_whole and x.is_cuda
+                and x.dtype == self.dtype and rate == 0.0
+                and not _needs_grad(itertools.chain((x,), self.parameters())))
+
+    def _attention_half_fused(self, x):
+        """shortcut + attention(norm1(x)) through the two glue kernels: norm1
+        written straight into the shifted, padded windows, and the windows
+        added back onto the shortcut."""
+        hp, wp = self._padded(x)
+        x = x.contiguous()
+        with span('yolact.swin.glue'):
+            windows = to_windows(x, self.norm1.weight, self.norm1.bias, self.window, self.shift)
+        attended = self.attn(windows, self._region(hp, wp, x.device))
+        with span('yolact.swin.glue'):
+            return from_windows(attended, x, self.window, self.shift)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
         rate = self.drop_path_rate if self.training else 0.0
+        count('swin.attn_blocks', 1)
         if self.fused_whole and rate == 0.0:
             return self._whole(x)
-        shortcut = x
-        x = _layer_norm(x, self.norm1, self.dtype)
-        windows, hp, wp, region = self._to_windows(x)
-        attended = self.attn(windows, region, fused_block=self.fused_attn_block)
-        x = self._from_windows(attended, hp, wp, h, w)
-        x = shortcut + drop_path(x, rate, generator)
+        if self._fused_glue(x, rate):
+            count('swin.glue_fused_blocks', 1)
+            x = self._attention_half_fused(x)
+        else:
+            shortcut = x
+            x = _layer_norm(x, self.norm1, self.dtype)
+            windows, _, _, region = self._to_windows(x)
+            attended = self.attn(windows, region, fused_block=self.fused_attn_block)
+            x = self._from_windows(attended, h, w)
+            x = shortcut + drop_path(x, rate, generator)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if rate > 0.0:
             # stochastic depth on the MLP branch: plain ops, as in the JAX block
@@ -363,7 +380,7 @@ class SwinBlock(nn.Module):
                        attn.bias(), region, attn.proj.cast()[0], attn.proj.bias,
                        self.norm2.weight, self.norm2.bias, fc1.cast()[0], fc1.bias,
                        fc2.cast()[0], fc2.bias, attn.num_heads)
-        return self._from_windows(y, hp, wp, h, w)
+        return self._from_windows(y, h, w)
 
 
 class PatchMerging(nn.Module):

@@ -63,6 +63,8 @@ SIGNATURES = {
     'swin_mlp.cu': {'swin_mlp': [_P] * 8 + [_I] * 3 + [_P],
                     'swin_mlp_wide': [_P] * 10 + [_I] * 2 + [_P],
                     'swin_mlp_geometry': [_I] * 3 + [_P]},
+    'swin_glue.cu': {'swin_glue_to_windows': [_P] * 4 + [_I] * 7 + [_P],
+                     'swin_glue_from_windows': [_P] * 3 + [_I] * 7 + [_P]},
     'window_attention.cu': {'window_attention': [_P] * 4 + [_I] * 7 + [_P],
                             'window_attention_n144': [_P] * 4 + [_I] * 6 + [_P],
                             'window_attention_backward': [_P] * 7 + [_I] * 6 + [_P],
